@@ -13,9 +13,13 @@ Phases (any failure exits non-zero, and no result line is printed):
             ``-Xptxas -v`` register/shared-memory report;
 3. kernels — each of the four kernels at its largest MobileNetV3-Large
             main-path shape (bucket 8) and at a ragged shape, against its
-            plain PyTorch version on the card; then CUDA-event times of the
-            kernel, the plain version and one PyTorch library call for the
-            same function, beside the roofline bound from the shapes;
+            plain PyTorch version on the card, twice (the repeat must be
+            bitwise equal); then CUDA-event times of the kernel, the plain
+            version and one PyTorch library call for the same function,
+            beside the roofline bound from the shapes.  Then the same for
+            every distinct shape of every kernel launch the main path makes
+            at bucket 8 (``zoo.kernel_launches``), with the main-path sums
+            (launches x ms, launches x bound);
 4. serve  — MobileNetV3-Large (224 px, width 1.0, 1000 classes, weights
             from the port's own seeded init) in ``fuse_half`` and
             ``depthwise``, 16 mixed-size requests through the synchronous
@@ -26,12 +30,17 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 ``--profile`` adds one more served round under ``torch.profiler`` and
 prints device time by kernel and the device's busy share of the round.
+``--parent DIR`` also times the kernels of another tree of the repository
+(``DIR/src``, for example a ``git archive`` of the parent commit unpacked
+under ``build/``) at the same shapes, in a subprocess before and after
+this tree's pass, and reports its times beside this tree's.
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import re
@@ -88,6 +97,184 @@ def fuse_input_elems(n, h, w, c, k, stride, variant) -> int:
     return n * c * (row_px + col_px - both)
 
 
+def spills(ptxas: str, names=("depthwise_kernel", "fuseconv_kernel")):
+    """{mangled entry: (spill store bytes, spill load bytes)} of the entries
+    of an ``-Xptxas -v`` report whose names contain one of ``names``."""
+    out, fn = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn and any(n in fn for n in names):
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+    return out
+
+
+def make_timer(dev):
+    """``time_ms(fn)``: mean CUDA-event time of one call, L2 flushed (64 MB
+    written) before each.  A spin on the device after the flush lets the
+    host enqueue the whole call before the start event is reached, so the
+    events time the device work and not the host's launch latency."""
+    import torch
+    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+
+    def time_ms(fn, iters=20, warmup=3) -> float:
+        for _ in range(warmup):
+            fn()
+        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+        for s, e in zip(starts, ends):
+            flush_buf.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            s.record()
+            fn()
+            e.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+    return time_ms
+
+
+def same_pad_nchw(x_nhwc, kh, kw, stride):
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused import same_pad
+    _, lo_h, hi_h = same_pad(x_nhwc.shape[1], kh, stride)
+    _, lo_w, hi_w = same_pad(x_nhwc.shape[2], kw, stride)
+    return F.pad(x_nhwc.permute(0, 3, 1, 2), (lo_w, hi_w, lo_h, hi_h))
+
+
+def fused_chain(x, wr, wc, wp, variant, stride, g, bb, act):
+    """cuDNN row + column banks, concat, affine, act, cuBLAS mix."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused import ACTS
+    k, c_r = wr.shape
+    xr, xc = (x, x) if variant == "fuse_full" else (
+        x[..., :c_r], x[..., c_r:])
+    yr = F.conv2d(same_pad_nchw(xr, k, 1, stride),
+                  wr.t().reshape(-1, 1, k, 1), stride=stride,
+                  groups=wr.shape[1])
+    yc = F.conv2d(same_pad_nchw(xc, 1, k, stride),
+                  wc.t().reshape(-1, 1, 1, k), stride=stride,
+                  groups=wc.shape[1])
+    ysp = torch.cat([yr, yc], dim=1).permute(0, 2, 3, 1)
+    ysp = ACTS[act](ysp * g + bb)
+    return ysp.reshape(-1, ysp.shape[-1]) @ wp
+
+
+LIBRARY_NAMES = {
+    "matmul": "torch.matmul",
+    "fuse1d": "F.conv1d(groups=C) on (N, C, T+K-1)",
+    "depthwise_kxk": "F.conv2d(groups=C) on the padded input",
+    "fuseconv_fused": "chain: cuDNN conv2d(groups) x2 + cat + affine + act "
+                      "+ cuBLAS matmul",
+}
+
+
+def shape_case(name: str, sh: dict, randn) -> dict:
+    """The kernel ``name`` at shape ``sh`` (a ``zoo.kernel_launches``
+    dict) on inputs from ``randn``: its call, plain version and library
+    call, the bytes and flops of its bound, and a description."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import fuse1d as kf1, fused as kfu
+    from repro_torch.kernels import matmul as kmm
+    if name == "matmul":
+        m, k, n = sh["m"], sh["k"], sh["n"]
+        a, w = randn(m, k), randn(k, n, scale=0.25)
+        return dict(run=lambda: kmm.matmul(a, w),
+                    plain=lambda: kmm.matmul_plain(a, w),
+                    library=lambda: torch.matmul(a, w),
+                    nbytes=4 * (m * k + k * n + m * n), flops=2 * m * k * n,
+                    shape=f"a ({m}, {k}) @ b ({k}, {n})")
+    if name == "fuse1d":
+        n, t, c, k = sh["n"], sh["t"], sh["c"], sh["k"]
+        xp, w1 = randn(n, t, c), randn(k, c, scale=0.5)
+        t_out = t - k + 1
+        x_ncl = xp.permute(0, 2, 1).contiguous()
+        w_ncl = w1.t().reshape(c, 1, k).contiguous()
+        return dict(run=lambda: kf1.fuse1d(xp, w1),
+                    plain=lambda: kf1.fuse1d_plain(xp, w1),
+                    library=lambda: F.conv1d(x_ncl, w_ncl, groups=c),
+                    nbytes=4 * (n * t * c + k * c + n * t_out * c),
+                    flops=2 * k * n * t_out * c,
+                    shape=f"x_pad ({n}, {t}, {c}), w ({k}, {c})")
+    b, h, w, c, k, s = (sh[key] for key in ("b", "h", "w", "c", "k",
+                                            "stride"))
+    oh, ow = -(-h // s), -(-w // s)
+    x = randn(b, h, w, c)
+    if name == "depthwise_kxk":
+        wd = randn(k, k, c, scale=0.3)
+        x_pad = same_pad_nchw(x, k, k, s)
+        w_oihw = wd.permute(2, 0, 1).unsqueeze(1).contiguous()
+        return dict(run=lambda: kfu.depthwise_kxk(x, wd, stride=s),
+                    plain=lambda: kfu.depthwise_kxk_plain(x, wd, stride=s),
+                    library=lambda: F.conv2d(x_pad, w_oihw, stride=s,
+                                             groups=c),
+                    nbytes=4 * (x.numel() + wd.numel() + b * oh * ow * c),
+                    flops=2 * k * k * b * oh * ow * c,
+                    shape=f"x ({b}, {h}, {w}, {c}), K{k} stride {s}")
+    variant, cout, act = sh["variant"], sh["cout"], sh["act"]
+    c_r = c if variant == "fuse_full" else c // 2
+    c_sp = 2 * c if variant == "fuse_full" else c
+    wr, wc = randn(k, c_r, scale=0.5), randn(k, c_sp - c_r, scale=0.5)
+    wp, g, bb = randn(c_sp, cout, scale=0.2), randn(c_sp, scale=0.5), \
+        randn(c_sp)
+    kw = dict(variant=variant, stride=s, scale=g, bias=bb, act=act)
+    return dict(
+        run=lambda: kfu.fuseconv_fused(x, wr, wc, wp, **kw),
+        plain=lambda: kfu.fuseconv_fused_plain(x, wr, wc, wp, **kw),
+        library=lambda: fused_chain(x, wr, wc, wp, variant, s, g, bb, act),
+        nbytes=4 * (fuse_input_elems(b, h, w, c, k, s, variant)
+                    + wr.numel() + wc.numel() + 2 * c_sp + wp.numel()
+                    + b * oh * ow * cout),
+        flops=b * oh * ow * (2 * k * c_sp + 2 * c_sp + 2 * c_sp * cout),
+        shape=f"x ({b}, {h}, {w}, {c}), {variant} K{k} stride {s}, "
+              f"w_pw ({c_sp}, {cout}), {act}")
+
+
+def time_kernels_only(shapes_json: str, out_json: str, seed: int) -> int:
+    """``--time-only``: time this process's ``repro_torch`` kernels (the
+    tree whose ``src`` is first on ``sys.path``) at the shapes listed in
+    ``shapes_json``; write their ms to ``out_json``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    _build.build()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+
+    time_ms = make_timer(dev)
+    with open(shapes_json) as f:
+        shapes = json.load(f)
+    out = [time_ms(shape_case(name, sh, randn)["run"]) for name, sh in shapes]
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def parent_times(parent: str, shapes, seed: int):
+    """ms of the kernels of the tree at ``parent`` at ``shapes``, from a
+    subprocess that imports that tree's ``src``."""
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    sj = os.path.join(ROOT, "build", "parent_shapes.json")
+    oj = os.path.join(ROOT, "build", "parent_ms.json")
+    with open(sj, "w") as f:
+        json.dump(shapes, f)
+    subprocess.run([sys.executable, os.path.abspath(__file__), "--time-only",
+                    sj, oj, "--src", os.path.join(parent, "src"),
+                    "--seed", str(seed)], check=True, timeout=900)
+    with open(oj) as f:
+        return json.load(f)
+
+
 def profile_round(run) -> None:
     """Device time by kernel and the device's busy share over one round."""
     import torch
@@ -121,18 +308,26 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="trace one more served round with torch.profiler")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time the kernels of the tree at DIR")
+    ap.add_argument("--time-only", nargs=2, metavar=("SHAPES", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--src", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, args.src)
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if args.time_only:
+        return time_kernels_only(*args.time_only, args.seed)
 
-    from repro_torch.kernels import _build, fuse1d as kf1, fused as kfu
-    from repro_torch.kernels import matmul as kmm, ops as kops
+    from repro_torch.kernels import _build, ops as kops
+    from repro_torch.kernels.fused import same_pad
     from repro_torch.serving.vision import (ModelRegistry, VisionServeEngine)
     from repro_torch.vision import zoo
 
@@ -156,166 +351,149 @@ def main() -> int:
     infos = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(infos)} sources (parallel nvcc)")
+    spilled = {}
     for info in infos.values():
         print(f"  {info.name}.cu: {info.seconds:.1f} s")
         for line in info.ptxas.splitlines():
             if re.search(r"Compiling entry|Used \d+ registers|spill", line):
                 print("   ", line.strip())
+        spilled.update({fn: sl for fn, sl in spills(info.ptxas).items()
+                        if any(sl)})
+    if spilled:
+        raise SystemExit(f"depthwise/fuseconv kernels spill: {spilled}")
+    if infos["fused"].ptxas:
+        print("build: no spills in depthwise_kernel or fuseconv_kernel")
+    else:
+        print("build: spill check not run: fused.cu was built before this "
+              "run (build/kernels), so there is no -Xptxas -v report")
 
     # -- 3. kernels ----------------------------------------------------------
-    flush_buf = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
-
-    def time_ms(fn, iters=20, warmup=3) -> float:
-        """Mean CUDA-event time of one call, L2 flushed before each.  A
-        spin on the device after the flush lets the host enqueue the whole
-        call before the start event is reached, so the events time the
-        device work and not the host's launch latency."""
-        for _ in range(warmup):
-            fn()
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        for s, e in zip(starts, ends):
-            flush_buf.zero_()
-            torch.cuda._sleep(SPIN_CYCLES)
-            s.record()
-            fn()
-            e.record()
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
-
-    def same_pad_nchw(x_nhwc, kh, kw, stride):
-        _, lo_h, hi_h = kfu.same_pad(x_nhwc.shape[1], kh, stride)
-        _, lo_w, hi_w = kfu.same_pad(x_nhwc.shape[2], kw, stride)
-        return F.pad(x_nhwc.permute(0, 3, 1, 2), (lo_w, hi_w, lo_h, hi_h))
-
-    def fused_chain(x, wr, wc, wp, variant, stride, g, bb, act):
-        """cuDNN row + column banks, concat, affine, act, cuBLAS mix."""
-        k, c_r = wr.shape
-        xr, xc = (x, x) if variant == "fuse_full" else (
-            x[..., :c_r], x[..., c_r:])
-        yr = F.conv2d(same_pad_nchw(xr, k, 1, stride),
-                      wr.t().reshape(-1, 1, k, 1), stride=stride,
-                      groups=wr.shape[1])
-        yc = F.conv2d(same_pad_nchw(xc, 1, k, stride),
-                      wc.t().reshape(-1, 1, 1, k), stride=stride,
-                      groups=wc.shape[1])
-        ysp = torch.cat([yr, yc], dim=1).permute(0, 2, 3, 1)
-        ysp = kfu.ACTS[act](ysp * g + bb)
-        return ysp.reshape(-1, ysp.shape[-1]) @ wp
-
+    time_ms = make_timer(dev)
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: tiny.add_(1))
+    print(f"timer floor: one 1-element kernel {floor_ms:.4f} ms (every time "
+          f"below includes this launch-to-end overhead)")
     b = 8    # the serve phase's largest bucket
-    cases = {}
-    # matmul: the 16 -> 64 expand at 112x112 (largest M), and a ragged one
-    a, w = randn(b * 112 * 112, 16), randn(16, 64, scale=0.25)
-    cases["matmul"] = dict(
-        run=lambda a=a, w=w: kmm.matmul(a, w),
-        plain=lambda a=a, w=w: kmm.matmul_plain(a, w),
-        library=lambda a=a, w=w: torch.matmul(a, w), library_name="torch.matmul",
-        ragged=(lambda a=randn(1001, 37), w=randn(37, 75): (
-            kmm.matmul(a, w), kmm.matmul_plain(a, w))),
-        nbytes=4 * (a.numel() + w.numel() + a.shape[0] * w.shape[1]),
-        flops=2 * a.shape[0] * a.shape[1] * w.shape[1],
-        shape=f"a {tuple(a.shape)} @ b {tuple(w.shape)}",
-        source="src/repro_torch/kernels/csrc/matmul.cu",
-        replaces="src/repro/kernels/matmul.py:52")
-    # fuse1d: rows of SE block 4 (exp 72 -> c_r 36, K=5, stride 2, 56x56
-    # in), padded as kops.fuse_conv2d_rows pads it; and a ragged one
-    _, lo, hi = kfu.same_pad(56, 5, 2)
-    xp, w1 = randn(b * 56, 56 + lo + hi, 36), randn(5, 36, scale=0.5)
-    t_out = xp.shape[1] - w1.shape[0] + 1
-    x_ncl = xp.permute(0, 2, 1).contiguous()
-    w_ncl = w1.t().reshape(36, 1, 5).contiguous()
-    cases["fuse1d"] = dict(
-        run=lambda: kf1.fuse1d(xp, w1),
-        plain=lambda: kf1.fuse1d_plain(xp, w1),
-        library=lambda: F.conv1d(x_ncl, w_ncl, groups=36),
-        library_name="F.conv1d(groups=C) on (N, C, T+K-1)",
-        ragged=(lambda x=randn(7, 15, 5), w=randn(3, 5): (
-            kf1.fuse1d(x, w), kf1.fuse1d_plain(x, w))),
-        nbytes=4 * (xp.numel() + w1.numel() + xp.shape[0] * t_out * 36),
-        flops=2 * 5 * xp.shape[0] * t_out * 36,
-        shape=f"x_pad {tuple(xp.shape)}, w {tuple(w1.shape)}",
-        source="src/repro_torch/kernels/csrc/fuse1d.cu",
-        replaces="src/repro/kernels/fuse1d.py:65")
-    # depthwise_kxk: block 2 (64 ch, K=3, stride 2 at 112x112), ragged
-    xd, wd = randn(b, 112, 112, 64), randn(3, 3, 64, scale=0.3)
-    xd_pad = same_pad_nchw(xd, 3, 3, 2)
-    wd_oihw = wd.permute(2, 0, 1).unsqueeze(1).contiguous()
-    cases["depthwise_kxk"] = dict(
-        run=lambda: kfu.depthwise_kxk(xd, wd, stride=2),
-        plain=lambda: kfu.depthwise_kxk_plain(xd, wd, stride=2),
-        library=lambda: F.conv2d(xd_pad, wd_oihw, stride=2, groups=64),
-        library_name="F.conv2d(groups=C) on the padded input",
-        ragged=(lambda x=randn(3, 13, 10, 37), w=randn(5, 5, 37): (
-            kfu.depthwise_kxk(x, w, stride=2),
-            kfu.depthwise_kxk_plain(x, w, stride=2))),
-        nbytes=4 * (xd.numel() + wd.numel() + b * 56 * 56 * 64),
-        flops=2 * 9 * b * 56 * 56 * 64,
-        shape=f"x {tuple(xd.shape)}, w {tuple(wd.shape)}, stride 2",
-        source="src/repro_torch/kernels/csrc/fused.cu",
-        replaces="src/repro/kernels/fused.py:285")
-    # fuseconv_fused: block 2 of the FuSe-Half model (exp 64, K=3, stride 2
-    # at 112x112, project to 24, relu), and a ragged fuse_full/hswish one
-    xf = randn(b, 112, 112, 64)
-    wr, wc = randn(3, 32, scale=0.5), randn(3, 32, scale=0.5)
-    wp, g, bb = randn(64, 24, scale=0.2), randn(64, scale=0.5), randn(64)
-    fkw = dict(variant="fuse_half", stride=2, scale=g, bias=bb, act="relu")
-    xr_ = randn(2, 13, 11, 37)
-    rkw = dict(variant="fuse_full", stride=2, scale=randn(74), bias=randn(74),
-               act="hswish")
-    rw = (randn(5, 37, scale=0.5), randn(5, 37, scale=0.5), randn(74, 45))
-    cases["fuseconv_fused"] = dict(
-        run=lambda: kfu.fuseconv_fused(xf, wr, wc, wp, **fkw),
-        plain=lambda: kfu.fuseconv_fused_plain(xf, wr, wc, wp, **fkw),
-        library=lambda: fused_chain(xf, wr, wc, wp, "fuse_half", 2, g, bb,
-                                    "relu"),
-        library_name="chain: cuDNN conv2d(groups) x2 + cat + affine + act "
-                     "+ cuBLAS matmul",
-        ragged=lambda: (kfu.fuseconv_fused(xr_, *rw, **rkw),
-                        kfu.fuseconv_fused_plain(xr_, *rw, **rkw)),
-        nbytes=4 * (fuse_input_elems(b, 112, 112, 64, 3, 2, "fuse_half")
-                    + wr.numel() + wc.numel() + 2 * 64 + wp.numel()
-                    + b * 56 * 56 * 24),
-        flops=b * 56 * 56 * (2 * 3 * 64 + 2 * 64 + 2 * 64 * 24),
-        shape=f"x {tuple(xf.shape)}, fuse_half K=3 stride 2, "
-              f"w_pw {tuple(wp.shape)}, relu",
-        source="src/repro_torch/kernels/csrc/fused.cu",
-        replaces="src/repro/kernels/fused.py:212")
+    _, lo, hi = same_pad(56, 5, 2)
+    # Each kernel at the shape timed since the first port (its largest
+    # main-path shape) and at a ragged one.
+    timed = {
+        "matmul": dict(m=b * 112 * 112, k=16, n=64),
+        "fuse1d": dict(n=b * 56, t=56 + lo + hi, c=36, k=5),
+        "depthwise_kxk": dict(b=b, h=112, w=112, c=64, k=3, stride=2),
+        "fuseconv_fused": dict(b=b, h=112, w=112, c=64, k=3, stride=2,
+                               variant="fuse_half", cout=24, act="relu"),
+    }
+    ragged = {
+        "matmul": dict(m=1001, k=37, n=75),
+        "fuse1d": dict(n=7, t=15, c=5, k=3),
+        "depthwise_kxk": dict(b=3, h=13, w=10, c=37, k=5, stride=2),
+        "fuseconv_fused": dict(b=2, h=13, w=11, c=37, k=5, stride=2,
+                               variant="fuse_full", cout=45, act="hswish"),
+    }
+    sources = {"matmul": ("matmul.cu", "src/repro/kernels/matmul.py:52"),
+               "fuse1d": ("fuse1d.cu", "src/repro/kernels/fuse1d.py:65"),
+               "depthwise_kxk": ("fused.cu", "src/repro/kernels/fused.py:285"),
+               "fuseconv_fused": ("fused.cu",
+                                  "src/repro/kernels/fused.py:212")}
+    net = zoo.mobilenet_v3_large()                # 224 px, width 1.0
+    variants = ("fuse_half", "depthwise")
+    shape_counts = collections.Counter(
+        (name, json.dumps(sh, sort_keys=True))
+        for v in variants for name, sh in zoo.kernel_launches(net, v, b))
+    path_shapes = [(name, json.loads(sh), n) for (name, sh), n in
+                   shape_counts.items()]
+    # the parent tree's times: timed rows, then every main-path shape
+    all_shapes = [[n, sh] for n, sh in timed.items()] + [
+        [n, sh] for n, sh, _ in path_shapes]
+    parent_runs = []
+    if args.parent:
+        parent_runs.append(parent_times(args.parent, all_shapes, args.seed))
+
+    def check(name, label, case) -> float:
+        """max|kernel - plain|, failing beyond the tolerance or when a
+        second call on the same input is not bitwise equal."""
+        got, again, ref = case["run"](), case["run"](), case["plain"]()
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape, (name, label, got.shape, ref.shape)
+        err = (got - ref).abs().max().item()
+        tol = KERNEL_RTOL * max(1.0, ref.abs().max().item())
+        if not (err <= tol and torch.isfinite(got).all()):
+            raise SystemExit(f"kernel {name} disagrees with its plain "
+                             f"version at {label}: {err:.3e} > {tol:.3e}")
+        if not torch.equal(got, again):
+            raise SystemExit(f"kernel {name} at {label}: a repeat on the "
+                             f"same input is not bitwise equal")
+        return err
+
+    def measure(case, err) -> dict:
+        ms, plain_ms = time_ms(case["run"]), time_ms(case["plain"])
+        library_ms = time_ms(case["library"])
+        bound_ms, bound_by = bound(case["nbytes"], case["flops"])
+        return dict(shape=case["shape"], max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
 
     report = {}
-    for name, cs in cases.items():
-        got, ref = cs["run"](), cs["plain"]()
-        rg, rr = cs["ragged"]()
-        torch.cuda.synchronize()
-        errs = []
-        for label, x, y in (("largest", got, ref), ("ragged", rg, rr)):
-            assert x.shape == y.shape, (name, label, x.shape, y.shape)
-            err = (x - y).abs().max().item()
-            tol = KERNEL_RTOL * max(1.0, y.abs().max().item())
-            print(f"kernel {name} [{label}] max|kernel-plain| = {err:.3e} "
-                  f"(tolerance {tol:.3e})")
-            if not (err <= tol and torch.isfinite(x).all()):
-                raise SystemExit(f"kernel {name} disagrees with its plain "
-                                 f"version on the {label} shape")
-            errs.append(err)
-        ms, plain_ms = time_ms(cs["run"]), time_ms(cs["plain"])
-        library_ms = time_ms(cs["library"])
-        bound_ms, bound_by = bound(cs["nbytes"], cs["flops"])
-        print(f"kernel {name} {cs['shape']}: {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, {cs['library_name']} {library_ms:.4f} ms,"
-              f" bound {bound_ms:.4f} ms ({bound_by})")
+    for name, sh in timed.items():
+        case = shape_case(name, sh, randn)
+        err = max(check(name, "the timed shape", case),
+                  check(name, "a ragged shape",
+                        shape_case(name, ragged[name], randn)))
+        row = measure(case, err)
+        print(f"kernel {name} {row['shape']}: {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, {LIBRARY_NAMES[name]} "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); max|kernel-plain| {err:.3e}, repeat "
+              f"bitwise equal")
+        src, replaces = sources[name]
         report[name] = dict(
-            name=name, route="cuda", source=cs["source"],
-            replaces=cs["replaces"], launches=None, max_abs_err=max(errs),
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms, library=cs["library_name"],
-            shape=cs["shape"])
-    del cases, flush_buf
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/"
+            f"{src}", replaces=replaces, launches=None, **row,
+            library=LIBRARY_NAMES[name], timer_floor_ms=floor_ms, shapes=[])
+        del case
+    # every distinct main-path shape at bucket 8, checked and timed
+    path_rows = []
+    for name, sh, n in path_shapes:
+        case = shape_case(name, sh, randn)
+        row = dict(measure(case, check(name, json.dumps(sh), case)),
+                   launches=n)
+        report[name]["shapes"].append(row)
+        path_rows.append(row)
+        del case
+        torch.cuda.empty_cache()
+    if args.parent:
+        parent_runs.append(parent_times(args.parent, all_shapes, args.seed))
+        parent_ms = [sum(r[i] for r in parent_runs) / len(parent_runs)
+                     for i in range(len(all_shapes))]
+        for i, name in enumerate(timed):
+            report[name]["parent_ms"] = parent_ms[i]
+        for row, ms in zip(path_rows, parent_ms[len(timed):]):
+            row["parent_ms"] = ms
+    for name, entry in report.items():
+        rows = entry["shapes"]
+        sums = {key: sum(r["launches"] * r[key] for r in rows)
+                for key in ("ms", "bound_ms", "library_ms")
+                + (("parent_ms",) if args.parent else ())}
+        entry["main_path"] = dict(launches=sum(r["launches"] for r in rows),
+                                  **sums)
+        print(f"kernel {name}: {len(rows)} main-path shapes at bucket {b}")
+        for r in rows:
+            par = (f", parent {r['parent_ms']:.4f}" if "parent_ms" in r
+                   else "")
+            print(f"  {r['launches']:2d}x {r['shape']}: {r['ms']:.4f} ms"
+                  f"{par}, library {r['library_ms']:.4f}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
+                  f"{r['plain_ms']:.4f}, err {r['max_abs_err']:.2e}")
+        print(f"kernel {name} main-path sums: launches x ms "
+              f"{sums['ms']:.4f}, launches x bound {sums['bound_ms']:.4f}, "
+              f"launches x library {sums['library_ms']:.4f}"
+              + (f", launches x parent {sums['parent_ms']:.4f}"
+                 if args.parent else "")
+              + f" ({entry['main_path']['launches']} launches)")
     torch.cuda.empty_cache()
 
     # -- 4. serve ------------------------------------------------------------
-    net = zoo.mobilenet_v3_large()            # 224 px, width 1.0, 1000 cls
-    variants = ("fuse_half", "depthwise")
     regs = {bk: ModelRegistry(backend=bk)
             for bk in ("cuda", "torch", "cuda_nofused")}
     for i, v in enumerate(variants):
@@ -381,8 +559,16 @@ def main() -> int:
     missing = [n for n, c in counts.items() if c == 0]
     if missing:
         raise SystemExit(f"kernels never launched while serving: {missing}")
+    # The round is one bucket-8 batch per model, so each counter must read
+    # the launches that weight the main-path sums above.
     for name, n in counts.items():
         report[name]["launches"] = n
+        listed = report[name]["main_path"]["launches"]
+        print(f"launches {name}: {n} while serving, {listed} in "
+              f"zoo.kernel_launches at bucket {b} (one batch per model)")
+        if n != listed:
+            raise SystemExit(f"kernel {name}: {n} launches while serving, "
+                             f"but the main-path sums weight {listed}")
     if args.profile:
         profile_round(lambda: serve(regs["cuda"]))
 

@@ -353,6 +353,65 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
     return x
 
 
+def kernel_launches(net: NetworkDef, variant="depthwise",
+                    batch: int = 1) -> List[tuple]:
+    """The kernel calls ``apply_network`` makes for one batch of ``batch``
+    images at ``net.resolution`` on backend ``cuda``, in order, as
+    ``(kernel name, shape dict)``:
+
+    - ``matmul``: ``m, k, n`` (a (m, k) @ (k, n));
+    - ``fuse1d``: ``n, t, c, k`` (x_pad (n, t, c), w (k, c));
+    - ``depthwise_kxk``: ``b, h, w, c, k, stride``;
+    - ``fuseconv_fused``: ``b, h, w, c, k, stride, variant, cout, act``.
+    """
+    from repro_torch.kernels.fused import same_pad
+    variants = _variant_list(net, variant)
+    out: List[tuple] = []
+    h = w = net.resolution
+    c = net.in_channels
+
+    def spatial(v, k, ch, stride):
+        if v == "depthwise":
+            out.append(("depthwise_kxk", dict(b=batch, h=h, w=w, c=ch, k=k,
+                                              stride=stride)))
+            return
+        c_r = ch if v == "fuse_full" else ch // 2
+        for axis_len, other, cb in ((h, w, c_r), (w, h, ch - c_r
+                                                  if v == "fuse_half"
+                                                  else ch)):
+            _, lo, hi = same_pad(axis_len, k, stride)
+            out.append(("fuse1d", dict(n=batch * other, t=axis_len + lo + hi,
+                                       c=cb, k=k)))
+
+    vi = 0
+    for b in net.blocks:
+        if isinstance(b, Stem):
+            h, w, c = -(-h // b.stride), -(-w // b.stride), b.cout
+        elif isinstance(b, (DWSep, MBConv)):
+            v = variants[vi]; vi += 1
+            mb = isinstance(b, MBConv)
+            exp = b.exp if mb else c
+            if mb and b.exp != c:
+                out.append(("matmul", dict(m=batch * h * w, k=c, n=exp)))
+            oh, ow = -(-h // b.stride), -(-w // b.stride)
+            c_sp = 2 * exp if v == "fuse_full" else exp
+            if _fusable(kb.CUDA, v, se=mb and b.se):
+                out.append(("fuseconv_fused", dict(
+                    b=batch, h=h, w=w, c=exp, k=b.kernel, stride=b.stride,
+                    variant=v, cout=b.cout, act=b.act)))
+            else:
+                spatial(v, b.kernel, exp, b.stride)
+                out.append(("matmul", dict(m=batch * oh * ow, k=c_sp,
+                                           n=b.cout)))
+            h, w, c = oh, ow, b.cout
+        elif isinstance(b, ConvBN):
+            if b.kernel == 1:
+                out.append(("matmul", dict(m=batch * h * w, k=c, n=b.cout)))
+            h, w = -(-h // b.stride), -(-w // b.stride)
+            c = b.cout
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Model factories (official configurations).
 # ---------------------------------------------------------------------------

@@ -9,7 +9,11 @@ tail blocks and multi-tile paths.  Tolerance: the reference's own
 ``rtol=atol=1e-4`` (tests/test_backend_conformance.py).
 
 ``test_kernels_match_plain_on_gpu`` (marker ``gpu``) compares each CUDA
-kernel with its plain version on the card; it skips where there is none.
+kernel with its plain version on the card; ``test_fused_kernels_on_gpu``
+holds ``depthwise_kxk`` and ``fuseconv_fused`` to their plain versions at
+every MobileNetV3-Large main-path shape (buckets 8 and 1) and at every edge
+of their tilings, with a bitwise repeat and one launch per call.  Both
+skip where there is no card.
 """
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from repro_torch.kernels import fuse1d as tfuse1d
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels import matmul as tmatmul
 from repro_torch.kernels import ops as tops
+from repro_torch.vision import zoo as tzoo
 
 RTOL = ATOL = 1e-4
 
@@ -99,7 +104,11 @@ def test_fuse_conv2d_ops_match_pallas_ops(h, w, c, k, stride):
 
 @pytest.mark.parametrize("h,w,c,k,stride", [(8, 8, 5, 3, 1), (13, 7, 9, 5, 2),
                                             (16, 10, 6, 3, 2),
-                                            (11, 17, 7, 5, 1)])
+                                            (11, 17, 7, 5, 1),
+                                            # K = 7 with C = 37 and H < K;
+                                            # a 1x1 image
+                                            (3, 9, 37, 7, 2),
+                                            (1, 1, 6, 3, 2)])
 def test_depthwise_kxk_matches_pallas_and_ref(h, w, c, k, stride):
     x, wt = _x((2, h, w, c)), _x((k, k, c), seed=9, scale=0.5)
     pallas = jfused.depthwise_kxk(x, wt, stride=stride, block_c=4,
@@ -123,6 +132,9 @@ FUSED_GRID = [
     (11, 13, 7, 5, 1, "fuse_half", 9, "hswish"),
     (7, 7, 3, 3, 2, "fuse_half", 5, "hswish"),
     (5, 17, 4, 5, 2, "fuse_full", 3, "relu"),
+    # K = 7 with C = 37, H < K and fuse_full at Cout > 64; a 1x1 image
+    (3, 9, 37, 7, 2, "fuse_full", 72, "hswish"),
+    (1, 1, 6, 3, 2, "fuse_full", 7, "relu"),
 ]
 
 
@@ -201,6 +213,38 @@ def test_backend_keys():
         tkb.resolve_backend("triton")
 
 
+# (b, oh, ow, c, k, stride): the main path's widest and narrowest output
+# extents, and K up to the largest that any tiling fits.
+TILING_SHAPES = [(8, 112, 112, 192, 3, 1), (8, 56, 56, 72, 5, 2),
+                 (1, 7, 7, 960, 7, 1), (2, 20, 20, 32, 15, 2),
+                 (8, 56, 56, 64, 31, 2), (1, 1, 1, 37, 51, 1)]
+
+
+@pytest.mark.parametrize("b,oh,ow,c,k,stride", TILING_SHAPES)
+@pytest.mark.parametrize("vec", [4, 1])
+def test_tilings_fit_shared_memory(b, oh, ow, c, k, stride, vec):
+    """The tile pickers keep a launch's dynamic shared memory within the
+    H100's opt-in and every tiling within what the C entry points accept;
+    a K that fits in no tiling is refused."""
+    smem = tfused.SMEM_OPTIN
+    for cout in (8, 16, 24, 45, 80, 160):
+        th, tw, nt, px, stages, ksplit, fk = t = tfused.fused_tiling(
+            b, oh, ow, c, cout, k, stride, vec, smem)
+        assert tfused.fused_smem_bytes(*t, k, stride, c, vec) <= smem
+        assert tw & (tw - 1) == 0 and nt % 4 == 0 and fk in (16, 32)
+        assert (nt // 4 * px) % 32 == 0 and nt // 4 * px * ksplit <= 512
+        assert px * 4 >= th * tw and 2 <= stages <= 8 and 1 <= ksplit <= 3
+    th, tw, cc, threads, stages = tfused.depthwise_tiling(
+        b, oh, ow, c, k, stride, vec, smem)
+    assert tfused.depthwise_smem_bytes(th, tw, cc, stages, k, stride) <= smem
+    assert tw % 4 == 0 and cc % 4 == 0 and cc // vec & (cc // vec - 1) == 0
+    assert threads <= 256 and threads % (cc // vec) == 0 and 2 <= stages <= 4
+    with pytest.raises(ValueError):
+        tfused.depthwise_tiling(b, oh, ow, c, 61, stride, vec, smem)
+    with pytest.raises(ValueError):
+        tfused.fused_tiling(b, oh, ow, c, 24, 199, stride, vec, smem)
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_gpu():
     """Each CUDA kernel against its plain version on the card, at a ragged
@@ -244,3 +288,117 @@ def test_kernels_match_plain_on_gpu():
               tfused.fuseconv_fused_plain(*args, **kw))
     after = tops.launch_counts()
     assert all(after[name] == before[name] + 2 for name in after)
+
+
+def _main_path_cases():
+    """Distinct (kernel, shape) of the fused and depthwise launches that
+    MobileNetV3-Large (224 px, width 1.0) makes at buckets 8 and 1."""
+    net = tzoo.mobilenet_v3_large()
+    seen = {}
+    for batch in (8, 1):
+        for variant in ("fuse_half", "depthwise"):
+            for name, shape in tzoo.kernel_launches(net, variant, batch):
+                if name in ("fuseconv_fused", "depthwise_kxk"):
+                    seen.setdefault((name, tuple(shape.items())),
+                                    (name, shape))
+    return list(seen.values())
+
+
+def _dw(b, h, w, c, k, stride, **extra):
+    return ("depthwise_kxk", dict(b=b, h=h, w=w, c=c, k=k, stride=stride,
+                                  **extra))
+
+
+def _fu(b, h, w, c, k, stride, variant, cout, act, **extra):
+    return ("fuseconv_fused", dict(b=b, h=h, w=w, c=c, k=k, stride=stride,
+                                   variant=variant, cout=cout, act=act,
+                                   **extra))
+
+
+# Edges of the tilings: tiles straddling every border, extents below one
+# tile and below K, a 1x1 image, C % 4 != 0, Cout 45 and 160 (fuse_full)
+# and 124 (31 lanes of 4, no thread count divisible by a warp),
+# K = 7 and a K the kernels have no instantiation for, stride 2 on odd and
+# even extents, every activation, an input that is not 16-byte aligned,
+# and shapes whose first-choice tiling exceeds the shared-memory opt-in.
+GPU_EDGES = [
+    _dw(2, 37, 29, 64, 3, 1), _dw(2, 37, 29, 64, 3, 2),
+    _dw(2, 38, 30, 64, 3, 2), _dw(3, 5, 3, 32, 3, 1),
+    _dw(2, 2, 9, 16, 5, 1), _dw(2, 1, 1, 24, 3, 2), _dw(2, 1, 1, 24, 7, 1),
+    _dw(3, 13, 10, 37, 5, 2), _dw(2, 9, 11, 37, 3, 1),
+    _dw(2, 20, 17, 40, 7, 1), _dw(2, 21, 18, 40, 7, 2),
+    _dw(2, 9, 9, 16, 1, 2), _dw(2, 15, 14, 36, 3, 2, offset=1),
+    _fu(2, 37, 29, 64, 3, 1, "fuse_half", 24, "relu"),
+    _fu(2, 37, 29, 64, 3, 2, "fuse_half", 24, "relu6"),
+    _fu(2, 38, 30, 64, 3, 2, "fuse_full", 16, "hswish"),
+    _fu(2, 2, 9, 16, 5, 1, "fuse_half", 16, "relu6"),
+    _fu(2, 1, 1, 32, 3, 2, "fuse_full", 16, "hswish"),
+    _fu(3, 5, 3, 32, 3, 1, "fuse_half", 8, "linear"),
+    _fu(2, 13, 11, 37, 5, 2, "fuse_full", 45, "hswish"),
+    _fu(2, 13, 11, 40, 3, 1, "fuse_full", 160, "linear"),
+    _fu(2, 20, 17, 32, 7, 2, "fuse_half", 24, "relu"),
+    _fu(2, 19, 12, 38, 3, 1, "fuse_half", 20, "relu"),
+    _fu(2, 12, 12, 24, 4, 2, "fuse_half", 12, "hswish"),
+    _fu(2, 9, 9, 16, 3, 1, "fuse_half", 124, "relu"),
+    _fu(2, 15, 14, 36, 3, 2, "fuse_half", 24, "relu", offset=1),
+    # tilings the shared-memory limit cuts down: the ring, the split, cc
+    _fu(8, 112, 112, 192, 3, 1, "fuse_half", 16, "relu"),
+    _fu(8, 112, 112, 192, 3, 1, "fuse_half", 8, "linear"),
+    _dw(2, 40, 40, 32, 15, 2), _dw(2, 23, 21, 40, 31, 1),
+]
+
+
+def _case_id(case):
+    name, sh = case
+    extra = f"-v{sh['variant']}-o{sh['cout']}-{sh['act']}" \
+        if name == "fuseconv_fused" else ""
+    off = "-unaligned" if sh.get("offset") else ""
+    return (f"{name}-b{sh['b']}-{sh['h']}x{sh['w']}x{sh['c']}-k{sh['k']}"
+            f"s{sh['stride']}{extra}{off}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", _main_path_cases() + GPU_EDGES,
+                         ids=_case_id)
+def test_fused_kernels_on_gpu(case):
+    """``depthwise_kxk`` / ``fuseconv_fused`` against the plain version at
+    ``1e-4 * max(1, max|plain|)``; a second call on the same input must be
+    bitwise equal, and each call adds exactly one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    name, sh = case
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def r(*shape, scale=1.0, offset=0):
+        a = (rng.standard_normal(shape) * scale).astype(np.float32)
+        buf = torch.empty(a.size + offset, device=dev)
+        t = buf[offset:].view(shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+
+    x = r(sh["b"], sh["h"], sh["w"], sh["c"], offset=sh.get("offset", 0))
+    k, c = sh["k"], sh["c"]
+    if name == "depthwise_kxk":
+        w = r(k, k, c, scale=0.3)
+        fn = tfused.depthwise_kxk
+        args, kw = (x, w), dict(stride=sh["stride"])
+        plain = tfused.depthwise_kxk_plain(*args, **kw)
+    else:
+        c_r = c if sh["variant"] == "fuse_full" else c // 2
+        c_sp = 2 * c if sh["variant"] == "fuse_full" else c
+        args = (x, r(k, c_r, scale=0.5), r(k, c_sp - c_r, scale=0.5),
+                r(c_sp, sh["cout"], scale=0.2))
+        kw = dict(variant=sh["variant"], stride=sh["stride"],
+                  scale=r(c_sp, scale=0.5), bias=r(c_sp), act=sh["act"])
+        fn = tfused.fuseconv_fused
+        plain = tfused.fuseconv_fused_plain(*args, **kw)
+    before = fn.launches
+    got = fn(*args, **kw)
+    again = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert got.shape == plain.shape
+    tol = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (got - plain).abs().max().item() <= tol
+    assert torch.equal(got, again)

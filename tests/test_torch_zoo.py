@@ -136,3 +136,49 @@ def test_layers_match_jax(train):
     np.testing.assert_allclose(
         TL.apply_se(params_from_numpy(se, "cpu"), torch.from_numpy(x)).numpy(),
         np.asarray(JL.apply_se(se, x)), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("variant", ["fuse_half", "depthwise"])
+def test_kernel_launches_lists_the_calls_apply_network_makes(
+        monkeypatch, variant):
+    """``zoo.kernel_launches`` (the shapes chip_smoke.py times per launch)
+    against the kernel calls one forward really makes, recorded on the
+    CPU."""
+    from repro_torch.kernels import fuse1d as kf1
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops as kops
+
+    calls = []
+
+    def record(name, fn, shape_of):
+        def wrapped(*args, **kw):
+            calls.append((name, shape_of(*args, **kw)))
+            return fn(*args, **kw)
+        return wrapped
+
+    def fused_shape(x, w_row, w_col, w_pw, *, variant, stride, act, **_):
+        b, h, w, c = x.shape
+        return dict(b=b, h=h, w=w, c=c, k=w_row.shape[0], stride=stride,
+                    variant=variant, cout=w_pw.shape[1], act=act)
+
+    def dw_shape(x, w, *, stride=1):
+        b, h, wd, c = x.shape
+        return dict(b=b, h=h, w=wd, c=c, k=w.shape[0], stride=stride)
+
+    monkeypatch.setattr(kops, "fuseconv_fused", record(
+        "fuseconv_fused", kops.fuseconv_fused, fused_shape))
+    monkeypatch.setattr(kops, "depthwise_kxk", record(
+        "depthwise_kxk", kops.depthwise_kxk, dw_shape))
+    monkeypatch.setattr(kf1, "fuse1d", record(
+        "fuse1d", kf1.fuse1d, lambda x, w: dict(
+            n=x.shape[0], t=x.shape[1], c=x.shape[2], k=w.shape[0])))
+    monkeypatch.setattr(kmm, "matmul", record(
+        "matmul", kmm.matmul, lambda a, b: dict(
+            m=a.shape[0], k=a.shape[1], n=b.shape[1])))
+    net = tzoo.mobilenet_v3_large(num_classes=16, width_mult=0.25,
+                                  resolution=40)
+    params = tzoo.init_network(torch.Generator().manual_seed(0), net,
+                               variant, device="cpu")
+    x = torch.randn(3, 40, 40, 3, generator=torch.Generator().manual_seed(1))
+    tzoo.apply_network(params, net, x, variant, backend="cuda")
+    assert calls == tzoo.kernel_launches(net, variant, 3)
