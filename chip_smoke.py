@@ -10,7 +10,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. card   — the card's name and power limit as nvidia-smi reports them;
 2. build  — compile every kernel under src/repro_torch/kernels/csrc (one
             nvcc per source, in parallel); print build time and the
-            ``-Xptxas -v`` register/shared-memory report;
+            ``-Xptxas -v`` register/shared-memory report, and fail if a
+            depthwise, fused or SGEMM instantiation has a stack frame or
+            spills;
 3. kernels — each of the four kernels at its largest MobileNetV3-Large
             main-path shape (bucket 8) and at a ragged shape, against its
             plain PyTorch version on the card, twice (the repeat must be
@@ -19,7 +21,8 @@ Phases (any failure exits non-zero, and no result line is printed):
             beside the roofline bound from the shapes.  Then the same for
             every distinct shape of every kernel launch the main path makes
             at bucket 8 (``zoo.kernel_launches``), with the main-path sums
-            (launches x ms, launches x bound);
+            (launches x ms, launches x bound) and, for matmul, the tiling
+            ``matmul_tiling`` picks and the blocks it launches;
 4. serve  — MobileNetV3-Large (224 px, width 1.0, 1000 classes, weights
             from the port's own seeded init) in ``fuse_half`` and
             ``depthwise``, 16 mixed-size requests through the synchronous
@@ -97,19 +100,21 @@ def fuse_input_elems(n, h, w, c, k, stride, variant) -> int:
     return n * c * (row_px + col_px - both)
 
 
-def spills(ptxas: str, names=("depthwise_kernel", "fuseconv_kernel")):
-    """{mangled entry: (spill store bytes, spill load bytes)} of the entries
-    of an ``-Xptxas -v`` report whose names contain one of ``names``."""
+def spills(ptxas: str, names=("depthwise_kernel", "fuseconv_kernel",
+                              "sgemm_kernel")):
+    """{mangled entry: (stack frame bytes, spill store bytes, spill load
+    bytes)} of the entries of an ``-Xptxas -v`` report whose names contain
+    one of ``names``."""
     out, fn = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             fn = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and fn and any(n in fn for n in names):
-            out[fn] = (int(m.group(1)), int(m.group(2)))
+            out[fn] = tuple(int(g) for g in m.groups())
     return out
 
 
@@ -163,6 +168,18 @@ def fused_chain(x, wr, wc, wp, variant, stride, g, bb, act):
     ysp = torch.cat([yr, yc], dim=1).permute(0, 2, 3, 1)
     ysp = ACTS[act](ysp * g + bb)
     return ysp.reshape(-1, ysp.shape[-1]) @ wp
+
+
+def matmul_tiling(m: int, k: int, n: int) -> dict:
+    """The SGEMM tiling the wrapper picks on this card for (m, k) @ (k, n)
+    with aligned operands, and the blocks it launches."""
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels.fused import smem_optin
+    bm, bn, bk, tm, stages, ks = kmm.matmul_tiling(
+        m, n, k, 4 if k % 4 == 0 and n % 4 == 0 else 1, kmm.sm_count(0),
+        smem_optin(0))
+    return dict(bm=bm, bn=bn, bk=bk, tm=tm, stages=stages, ks=ks,
+                blocks=-(-m // bm) * -(-n // bn) * ks)
 
 
 LIBRARY_NAMES = {
@@ -360,12 +377,16 @@ def main() -> int:
         spilled.update({fn: sl for fn, sl in spills(info.ptxas).items()
                         if any(sl)})
     if spilled:
-        raise SystemExit(f"depthwise/fuseconv kernels spill: {spilled}")
-    if infos["fused"].ptxas:
-        print("build: no spills in depthwise_kernel or fuseconv_kernel")
-    else:
-        print("build: spill check not run: fused.cu was built before this "
-              "run (build/kernels), so there is no -Xptxas -v report")
+        raise SystemExit(f"depthwise/fuseconv/sgemm kernels have a stack "
+                         f"frame or spill (frame, stores, loads): {spilled}")
+    for src, kernels in (("fused", "depthwise_kernel or fuseconv_kernel"),
+                         ("matmul", "sgemm_kernel")):
+        if infos[src].ptxas:
+            print(f"build: no stack frame or spill in {kernels}")
+        else:
+            print(f"build: spill check not run for {kernels}: {src}.cu was "
+                  f"built before this run (build/kernels), so there is no "
+                  f"-Xptxas -v report")
 
     # -- 3. kernels ----------------------------------------------------------
     time_ms = make_timer(dev)
@@ -458,6 +479,8 @@ def main() -> int:
         case = shape_case(name, sh, randn)
         row = dict(measure(case, check(name, json.dumps(sh), case)),
                    launches=n)
+        if name == "matmul":
+            row["tiling"] = matmul_tiling(sh["m"], sh["k"], sh["n"])
         report[name]["shapes"].append(row)
         path_rows.append(row)
         del case
@@ -481,10 +504,14 @@ def main() -> int:
         for r in rows:
             par = (f", parent {r['parent_ms']:.4f}" if "parent_ms" in r
                    else "")
+            til = r.get("tiling")
+            til = (f", tile {til['bm']}x{til['bn']} bk {til['bk']} tm "
+                   f"{til['tm']} ring {til['stages']} split {til['ks']}, "
+                   f"{til['blocks']} blocks" if til else "")
             print(f"  {r['launches']:2d}x {r['shape']}: {r['ms']:.4f} ms"
                   f"{par}, library {r['library_ms']:.4f}, bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
-                  f"{r['plain_ms']:.4f}, err {r['max_abs_err']:.2e}")
+                  f"{r['plain_ms']:.4f}, err {r['max_abs_err']:.2e}{til}")
         print(f"kernel {name} main-path sums: launches x ms "
               f"{sums['ms']:.4f}, launches x bound {sums['bound_ms']:.4f}, "
               f"launches x library {sums['library_ms']:.4f}"

@@ -10,10 +10,12 @@ tail blocks and multi-tile paths.  Tolerance: the reference's own
 
 ``test_kernels_match_plain_on_gpu`` (marker ``gpu``) compares each CUDA
 kernel with its plain version on the card; ``test_fused_kernels_on_gpu``
-holds ``depthwise_kxk`` and ``fuseconv_fused`` to their plain versions at
-every MobileNetV3-Large main-path shape (buckets 8 and 1) and at every edge
-of their tilings, with a bitwise repeat and one launch per call.  Both
-skip where there is no card.
+and ``test_matmul_on_gpu`` hold ``depthwise_kxk``, ``fuseconv_fused`` and
+``matmul`` to their plain versions at every MobileNetV3-Large main-path
+shape (buckets 8 and 1) and at every edge of their tilings, with a bitwise
+repeat and one launch per call.  They skip where there is no card.
+``test_matmul_tiling_fits_the_card`` checks the SGEMM's tile picker on the
+CPU.
 """
 import numpy as np
 import pytest
@@ -290,15 +292,16 @@ def test_kernels_match_plain_on_gpu():
     assert all(after[name] == before[name] + 2 for name in after)
 
 
-def _main_path_cases():
-    """Distinct (kernel, shape) of the fused and depthwise launches that
-    MobileNetV3-Large (224 px, width 1.0) makes at buckets 8 and 1."""
+def _main_path_cases(names=("fuseconv_fused", "depthwise_kxk"),
+                     batches=(8, 1)):
+    """Distinct (kernel, shape) of the launches of the kernels ``names``
+    that MobileNetV3-Large (224 px, width 1.0) makes at ``batches``."""
     net = tzoo.mobilenet_v3_large()
     seen = {}
-    for batch in (8, 1):
+    for batch in batches:
         for variant in ("fuse_half", "depthwise"):
             for name, shape in tzoo.kernel_launches(net, variant, batch):
-                if name in ("fuseconv_fused", "depthwise_kxk"):
+                if name in names:
                     seen.setdefault((name, tuple(shape.items())),
                                     (name, shape))
     return list(seen.values())
@@ -398,6 +401,90 @@ def test_fused_kernels_on_gpu(case):
     again = fn(*args, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 2
+    assert got.shape == plain.shape
+    tol = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (got - plain).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+# The H100's shared-memory opt-in and SM count, for the CPU tiling tests.
+H100_SMEM, H100_SMS = 232448, 132
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("batch", [8, 4, 2, 1])
+def test_matmul_tiling_fits_the_card(batch, vec):
+    """At every main-path matmul shape the picked tiling is one
+    ``repro_matmul_f32`` accepts, fits the H100's shared-memory opt-in,
+    leaves at most an eighth of the tile columns idle where N % 8 == 0,
+    and launches at least one block per SM (counting the K split) wherever
+    16 x 16 tiles would."""
+    for _, sh in _main_path_cases(("matmul",), (batch,)):
+        m, k, n = sh["m"], sh["k"], sh["n"]
+        bm, bn, bk, tm, stages, ks = tmatmul.matmul_tiling(
+            m, n, k, vec, H100_SMS, H100_SMEM)
+        assert bk in (16, 32) and tm in (4, 8) and bm % tm == 0
+        assert bn % 4 == 0 and (bm // tm) * (bn // 4) <= tmatmul.MAX_THREADS
+        assert 2 <= stages <= tmatmul.MAX_STAGES
+        assert 1 <= ks <= min(tmatmul.MAX_SPLIT, max(1, -(-k // bk)))
+        assert tmatmul.matmul_smem_bytes(bm, bn, bk, stages, ks) <= H100_SMEM
+        cols = -(-n // bn) * bn
+        if n % 8 == 0:
+            assert 8 * (cols - n) <= cols, (sh, bn)
+        blocks = -(-m // bm) * -(-n // bn) * ks
+        if -(-m // 16) * -(-n // 16) >= H100_SMS:
+            assert blocks >= H100_SMS, (sh, (bm, bn, ks), blocks)
+
+
+def test_matmul_tiling_refuses_what_does_not_fit():
+    """A shared-memory budget no tiling fits raises ``ValueError``; a
+    small one that some tiling fits is kept to."""
+    with pytest.raises(ValueError):
+        tmatmul.matmul_tiling(1568, 112, 672, 4, H100_SMS, 1024)
+    bm, bn, bk, _, stages, ks = t = tmatmul.matmul_tiling(
+        1568, 112, 672, 4, H100_SMS, 8192)
+    assert tmatmul.matmul_smem_bytes(bm, bn, bk, stages, ks) <= 8192, t
+
+
+# Edges of the SGEMM: M below one tile and M = 1, M and N that no tile
+# divides (K = 37, N = 75), K = 0 and 1, N = 1, K % 4 != 0, an a whose base
+# is one float off 16-byte alignment, and a deep K that the split walks.
+MATMUL_EDGES = [(7, 16, 8), (1, 16, 64), (1001, 37, 75), (5, 1, 3),
+                (5, 0, 3), (300, 1, 1), (33, 20, 1), (130, 129, 5),
+                (2000, 12, 36), (64, 4096, 64), (999, 401, 117)]
+MATMUL_GPU_CASES = (
+    [(sh["m"], sh["k"], sh["n"], 0)
+     for _, sh in _main_path_cases(("matmul",))]
+    + [(m, k, n, 0) for m, k, n in MATMUL_EDGES]
+    + [(1001, 36, 72, 1), (392, 960, 160, 1)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "m,k,n,offset", MATMUL_GPU_CASES,
+    ids=[f"{m}x{k}x{n}" + ("-unaligned" if o else "")
+         for m, k, n, o in MATMUL_GPU_CASES])
+def test_matmul_on_gpu(m, k, n, offset):
+    """``matmul`` against ``matmul_plain`` at ``1e-4 * max(1, max|plain|)``;
+    a second call on the same input must be bitwise equal, and each call
+    adds exactly one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    a_np = rng.standard_normal((m, k)).astype(np.float32)
+    buf = torch.empty(a_np.size + offset, device=dev)
+    a = buf[offset:].view(m, k)
+    a.copy_(torch.from_numpy(a_np))
+    b = torch.from_numpy(
+        (rng.standard_normal((k, n)) * 0.25).astype(np.float32)).to(dev)
+    plain = tmatmul.matmul_plain(a, b)
+    before = tmatmul.matmul.launches
+    got = tmatmul.matmul(a, b)
+    again = tmatmul.matmul(a, b)
+    torch.cuda.synchronize()
+    assert tmatmul.matmul.launches == before + 2
     assert got.shape == plain.shape
     tol = 1e-4 * max(1.0, plain.abs().max().item())
     assert (got - plain).abs().max().item() <= tol
