@@ -11,18 +11,22 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build  — compile every kernel under src/repro_torch/kernels/csrc (one
             nvcc per source, in parallel); print build time and the
             ``-Xptxas -v`` register/shared-memory report, and fail if a
-            depthwise, fused or SGEMM instantiation has a stack frame or
-            spills;
+            depthwise, fused, SGEMM or FuSe-stage instantiation has a stack
+            frame or spills;
 3. kernels — each of the four kernels at its largest MobileNetV3-Large
             main-path shape (bucket 8) and at a ragged shape, against its
             plain PyTorch version on the card, twice (the repeat must be
             bitwise equal); then CUDA-event times of the kernel, the plain
             version and one PyTorch library call for the same function,
-            beside the roofline bound from the shapes.  Then the same for
-            every distinct shape of every kernel launch the main path makes
-            at bucket 8 (``zoo.kernel_launches``), with the main-path sums
-            (launches x ms, launches x bound) and, for matmul, the tiling
-            ``matmul_tiling`` picks and the blocks it launches;
+            beside the roofline bound from the shapes.  ``fuse1d``'s unit
+            is the FuSe spatial stage (``ops.fuse_conv2d_half``, one
+            launch); its 1-D form is checked and timed beside it.  Then the
+            same for every distinct shape of every kernel launch the main
+            path makes at bucket 8 (``zoo.kernel_launches``), with the
+            main-path sums (launches x ms, launches x bound) and, for
+            matmul, a note of the tiling ``matmul_tiling`` picks and the
+            blocks it launches (printed, not part of the ``kernels``
+            line);
 4. serve  — MobileNetV3-Large (224 px, width 1.0, 1000 classes, weights
             from the port's own seeded init) in ``fuse_half`` and
             ``depthwise``, 16 mixed-size requests through the synchronous
@@ -32,11 +36,15 @@ Phases (any failure exits non-zero, and no result line is printed):
             moved while serving.
 
 ``--profile`` adds one more served round under ``torch.profiler`` and
-prints device time by kernel and the device's busy share of the round.
+prints device time by kernel and the device's busy share of the round;
+it also counts the device kernels of one call at each FuSe stage shape
+(failing unless it is one) and of one ``fuse_half`` forward at bucket 8.
 ``--parent DIR`` also times the kernels of another tree of the repository
 (``DIR/src``, for example a ``git archive`` of the parent commit unpacked
 under ``build/``) at the same shapes, in a subprocess before and after
-this tree's pass, and reports its times beside this tree's.
+this tree's pass, and reports its times beside this tree's; its FuSe
+stages are timed again with the device spin doubled, and with
+``--profile`` their device kernels are counted too.
 The last two lines are the ``kernels`` JSON line and the result line
 ``{"ok": true, "device": {...}}``.
 """
@@ -101,7 +109,7 @@ def fuse_input_elems(n, h, w, c, k, stride, variant) -> int:
 
 
 def spills(ptxas: str, names=("depthwise_kernel", "fuseconv_kernel",
-                              "sgemm_kernel")):
+                              "sgemm_kernel", "stage_direct_kernel")):
     """{mangled entry: (stack frame bytes, spill store bytes, spill load
     bytes)} of the entries of an ``-Xptxas -v`` report whose names contain
     one of ``names``."""
@@ -118,11 +126,12 @@ def spills(ptxas: str, names=("depthwise_kernel", "fuseconv_kernel",
     return out
 
 
-def make_timer(dev):
+def make_timer(dev, spin=SPIN_CYCLES):
     """``time_ms(fn)``: mean CUDA-event time of one call, L2 flushed (64 MB
-    written) before each.  A spin on the device after the flush lets the
-    host enqueue the whole call before the start event is reached, so the
-    events time the device work and not the host's launch latency."""
+    written) before each.  A spin of ``spin`` cycles on the device after
+    the flush lets the host enqueue the whole call before the start event
+    is reached, so the events time the device work and not the host's
+    launch latency."""
     import torch
     flush_buf = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
 
@@ -133,7 +142,7 @@ def make_timer(dev):
         ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
         for s, e in zip(starts, ends):
             flush_buf.zero_()
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin)
             s.record()
             fn()
             e.record()
@@ -184,21 +193,47 @@ def matmul_tiling(m: int, k: int, n: int) -> dict:
 
 LIBRARY_NAMES = {
     "matmul": "torch.matmul",
-    "fuse1d": "F.conv1d(groups=C) on (N, C, T+K-1)",
+    "fuse1d": "F.conv2d(groups=C) on the padded NCHW input, row and column "
+              "taps in a KxK weight",
+    "fuse1d (1-D)": "F.conv1d(groups=C) on (N, C, T+K-1)",
     "depthwise_kxk": "F.conv2d(groups=C) on the padded input",
     "fuseconv_fused": "chain: cuDNN conv2d(groups) x2 + cat + affine + act "
                       "+ cuBLAS matmul",
 }
 
 
+def stage_weight(wr, wc, variant, lo_h, lo_w):
+    """The (C_out, 1, K, K) depthwise weight that computes a FuSe stage as
+    one ``F.conv2d(groups=C)`` on the SAME-padded input: a row tap t of
+    channel j at (t, lo_w), a column tap at (lo_h, t), zero elsewhere (the
+    row bank reads column ox*s, the column bank row oy*s).  ``fuse_full``
+    gives each input channel two outputs, its row then its column filter
+    (interleaved, where the kernel puts all rows first)."""
+    import torch
+    k, c_r = wr.shape
+    c_c = wc.shape[1]
+    if variant == "fuse_full":
+        w = torch.zeros(c_r, 2, k, k, device=wr.device)
+        w[:, 0, :, lo_w], w[:, 1, lo_h, :] = wr.t(), wc.t()
+        return w.reshape(2 * c_r, 1, k, k)
+    w = torch.zeros(c_r + c_c, 1, k, k, device=wr.device)
+    w[:c_r, 0, :, lo_w], w[c_r:, 0, lo_h, :] = wr.t(), wc.t()
+    return w
+
+
 def shape_case(name: str, sh: dict, randn) -> dict:
     """The kernel ``name`` at shape ``sh`` (a ``zoo.kernel_launches``
     dict) on inputs from ``randn``: its call, plain version and library
-    call, the bytes and flops of its bound, and a description."""
+    call, the bytes and flops of its bound, and a description.  A
+    ``fuse1d`` dict with ``n, t, c, k`` is the 1-D primitive; with ``b, h,
+    w, c, k, stride, variant`` it is a FuSe spatial stage through
+    ``ops.fuse_conv2d_half``/``full`` (which this tree and its parents
+    both have)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import fuse1d as kf1, fused as kfu
     from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import ops as kops
     if name == "matmul":
         m, k, n = sh["m"], sh["k"], sh["n"]
         a, w = randn(m, k), randn(k, n, scale=0.25)
@@ -207,7 +242,7 @@ def shape_case(name: str, sh: dict, randn) -> dict:
                     library=lambda: torch.matmul(a, w),
                     nbytes=4 * (m * k + k * n + m * n), flops=2 * m * k * n,
                     shape=f"a ({m}, {k}) @ b ({k}, {n})")
-    if name == "fuse1d":
+    if name == "fuse1d" and "n" in sh:
         n, t, c, k = sh["n"], sh["t"], sh["c"], sh["k"]
         xp, w1 = randn(n, t, c), randn(k, c, scale=0.5)
         t_out = t - k + 1
@@ -216,6 +251,7 @@ def shape_case(name: str, sh: dict, randn) -> dict:
         return dict(run=lambda: kf1.fuse1d(xp, w1),
                     plain=lambda: kf1.fuse1d_plain(xp, w1),
                     library=lambda: F.conv1d(x_ncl, w_ncl, groups=c),
+                    library_name=LIBRARY_NAMES["fuse1d (1-D)"],
                     nbytes=4 * (n * t * c + k * c + n * t_out * c),
                     flops=2 * k * n * t_out * c,
                     shape=f"x_pad ({n}, {t}, {c}), w ({k}, {c})")
@@ -223,6 +259,27 @@ def shape_case(name: str, sh: dict, randn) -> dict:
                                             "stride"))
     oh, ow = -(-h // s), -(-w // s)
     x = randn(b, h, w, c)
+    if name == "fuse1d":
+        variant = sh["variant"]
+        c_r = c if variant == "fuse_full" else c // 2
+        c_sp = 2 * c if variant == "fuse_full" else c
+        wr, wc = randn(k, c_r, scale=0.5), randn(k, c_sp - c_r, scale=0.5)
+        op = (kops.fuse_conv2d_full if variant == "fuse_full"
+              else kops.fuse_conv2d_half)
+        x_pad = same_pad_nchw(x, k, k, s)
+        _, lo_h, _ = kfu.same_pad(h, k, s)
+        _, lo_w, _ = kfu.same_pad(w, k, s)
+        w_oihw = stage_weight(wr, wc, variant, lo_h, lo_w)
+        return dict(run=lambda: op(x, wr, wc, stride=s),
+                    plain=lambda: kf1.fuse_stage_plain(
+                        x, wr, wc, variant=variant, stride=s),
+                    library=lambda: F.conv2d(x_pad, w_oihw, stride=s,
+                                             groups=c),
+                    nbytes=4 * (fuse_input_elems(b, h, w, c, k, s, variant)
+                                + k * c_sp + b * oh * ow * c_sp),
+                    flops=2 * k * b * oh * ow * c_sp,
+                    shape=f"x ({b}, {h}, {w}, {c}), {variant} K{k} "
+                          f"stride {s}")
     if name == "depthwise_kxk":
         wd = randn(k, k, c, scale=0.3)
         x_pad = same_pad_nchw(x, k, k, s)
@@ -253,10 +310,50 @@ def shape_case(name: str, sh: dict, randn) -> dict:
               f"w_pw ({c_sp}, {cout}), {act}")
 
 
-def time_kernels_only(shapes_json: str, out_json: str, seed: int) -> int:
+def is_stage(name: str, sh: dict) -> bool:
+    return name == "fuse1d" and "variant" in sh
+
+
+def device_kernels(fn):
+    """(count, names) of the device kernels and copies that one call of
+    ``fn`` runs, from ``torch.profiler`` (after one untraced call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return sum(e.count for e in rows), sorted(e.key[:60] for e in rows)
+
+
+def forward_kernels(seed: int, dev) -> int:
+    """Device kernels and copies of one MobileNetV3-Large ``fuse_half``
+    forward at bucket 8 (224 px) on backend ``cuda``."""
+    import torch
+    from repro_torch.vision import zoo
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = zoo.mobilenet_v3_large()
+    params = zoo.init_network(torch.Generator().manual_seed(seed), net,
+                              "fuse_half", device=dev)
+    x = torch.randn(8, 224, 224, 3, generator=torch.Generator()
+                    .manual_seed(seed)).to(dev)
+    return device_kernels(lambda: zoo.apply_network(
+        params, net, x, "fuse_half", backend="cuda"))[0]
+
+
+def time_kernels_only(shapes_json: str, out_json: str, seed: int,
+                      profile: bool) -> int:
     """``--time-only``: time this process's ``repro_torch`` kernels (the
     tree whose ``src`` is first on ``sys.path``) at the shapes listed in
-    ``shapes_json``; write their ms to ``out_json``."""
+    ``shapes_json``; write to ``out_json`` their ms, the FuSe stages' ms
+    with the device spin doubled and, with ``profile``, the device kernels
+    of one call at each stage shape and of one fuse_half forward."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -268,18 +365,26 @@ def time_kernels_only(shapes_json: str, out_json: str, seed: int) -> int:
         return torch.from_numpy(
             (rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
 
-    time_ms = make_timer(dev)
+    time_ms, time_ms_2 = make_timer(dev), make_timer(dev, 2 * SPIN_CYCLES)
     with open(shapes_json) as f:
         shapes = json.load(f)
-    out = [time_ms(shape_case(name, sh, randn)["run"]) for name, sh in shapes]
+    out = dict(ms=[], ms_spin2=[], kernels=[])
+    for name, sh in shapes:
+        run = shape_case(name, sh, randn)["run"]
+        stage = is_stage(name, sh)
+        out["ms"].append(time_ms(run))
+        out["ms_spin2"].append(time_ms_2(run) if stage else None)
+        out["kernels"].append(device_kernels(run)[0] if stage and profile
+                              else None)
+    out["forward_kernels"] = forward_kernels(seed, dev) if profile else None
     with open(out_json, "w") as f:
         json.dump(out, f)
     return 0
 
 
-def parent_times(parent: str, shapes, seed: int):
-    """ms of the kernels of the tree at ``parent`` at ``shapes``, from a
-    subprocess that imports that tree's ``src``."""
+def parent_times(parent: str, shapes, seed: int, profile: bool) -> dict:
+    """``time_kernels_only``'s results for the tree at ``parent`` at
+    ``shapes``, from a subprocess that imports that tree's ``src``."""
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     sj = os.path.join(ROOT, "build", "parent_shapes.json")
     oj = os.path.join(ROOT, "build", "parent_ms.json")
@@ -287,7 +392,8 @@ def parent_times(parent: str, shapes, seed: int):
         json.dump(shapes, f)
     subprocess.run([sys.executable, os.path.abspath(__file__), "--time-only",
                     sj, oj, "--src", os.path.join(parent, "src"),
-                    "--seed", str(seed)], check=True, timeout=900)
+                    "--seed", str(seed)] + (["--profile"] if profile else []),
+                   check=True, timeout=900)
     with open(oj) as f:
         return json.load(f)
 
@@ -341,7 +447,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     if args.time_only:
-        return time_kernels_only(*args.time_only, args.seed)
+        return time_kernels_only(*args.time_only, args.seed, args.profile)
 
     from repro_torch.kernels import _build, ops as kops
     from repro_torch.kernels.fused import same_pad
@@ -377,10 +483,12 @@ def main() -> int:
         spilled.update({fn: sl for fn, sl in spills(info.ptxas).items()
                         if any(sl)})
     if spilled:
-        raise SystemExit(f"depthwise/fuseconv/sgemm kernels have a stack "
-                         f"frame or spill (frame, stores, loads): {spilled}")
+        raise SystemExit(f"depthwise/fuseconv/sgemm/stage kernels have a "
+                         f"stack frame or spill (frame, stores, loads): "
+                         f"{spilled}")
     for src, kernels in (("fused", "depthwise_kernel or fuseconv_kernel"),
-                         ("matmul", "sgemm_kernel")):
+                         ("matmul", "sgemm_kernel"),
+                         ("fuse1d", "stage_direct_kernel")):
         if infos[src].ptxas:
             print(f"build: no stack frame or spill in {kernels}")
         else:
@@ -397,21 +505,27 @@ def main() -> int:
     b = 8    # the serve phase's largest bucket
     _, lo, hi = same_pad(56, 5, 2)
     # Each kernel at the shape timed since the first port (its largest
-    # main-path shape) and at a ragged one.
+    # main-path shape; for fuse1d its largest FuSe stage) and at a ragged
+    # one; fuse1d's 1-D form at the shape it was timed at before and at a
+    # ragged one.
     timed = {
         "matmul": dict(m=b * 112 * 112, k=16, n=64),
-        "fuse1d": dict(n=b * 56, t=56 + lo + hi, c=36, k=5),
+        "fuse1d": dict(b=b, h=56, w=56, c=72, k=5, stride=2,
+                       variant="fuse_half"),
         "depthwise_kxk": dict(b=b, h=112, w=112, c=64, k=3, stride=2),
         "fuseconv_fused": dict(b=b, h=112, w=112, c=64, k=3, stride=2,
                                variant="fuse_half", cout=24, act="relu"),
     }
     ragged = {
         "matmul": dict(m=1001, k=37, n=75),
-        "fuse1d": dict(n=7, t=15, c=5, k=3),
+        "fuse1d": dict(b=2, h=13, w=11, c=37, k=5, stride=2,
+                       variant="fuse_full"),
         "depthwise_kxk": dict(b=3, h=13, w=10, c=37, k=5, stride=2),
         "fuseconv_fused": dict(b=2, h=13, w=11, c=37, k=5, stride=2,
                                variant="fuse_full", cout=45, act="hswish"),
     }
+    one_d = dict(n=b * 56, t=56 + lo + hi, c=36, k=5)
+    one_d_ragged = dict(n=7, t=15, c=5, k=3)
     sources = {"matmul": ("matmul.cu", "src/repro/kernels/matmul.py:52"),
                "fuse1d": ("fuse1d.cu", "src/repro/kernels/fuse1d.py:65"),
                "depthwise_kxk": ("fused.cu", "src/repro/kernels/fused.py:285"),
@@ -424,12 +538,14 @@ def main() -> int:
         for v in variants for name, sh in zoo.kernel_launches(net, v, b))
     path_shapes = [(name, json.loads(sh), n) for (name, sh), n in
                    shape_counts.items()]
-    # the parent tree's times: timed rows, then every main-path shape
+    # the parent tree's times: timed rows, the 1-D row, then every
+    # main-path shape
     all_shapes = [[n, sh] for n, sh in timed.items()] + [
-        [n, sh] for n, sh, _ in path_shapes]
+        ["fuse1d", one_d]] + [[n, sh] for n, sh, _ in path_shapes]
     parent_runs = []
     if args.parent:
-        parent_runs.append(parent_times(args.parent, all_shapes, args.seed))
+        parent_runs.append(parent_times(args.parent, all_shapes, args.seed,
+                                        args.profile))
 
     def check(name, label, case) -> float:
         """max|kernel - plain|, failing beyond the tolerance or when a
@@ -447,67 +563,120 @@ def main() -> int:
                              f"same input is not bitwise equal")
         return err
 
+    def check_library(label, case, sh) -> None:
+        """The library call of a fuse_half stage computes the same function
+        (NCHW out) as the plain version, within the kernels' tolerance."""
+        if sh.get("variant") != "fuse_half":
+            return
+        lib, ref = case["library"]().permute(0, 2, 3, 1), case["plain"]()
+        err = (lib - ref).abs().max().item()
+        if err > KERNEL_RTOL * max(1.0, ref.abs().max().item()):
+            raise SystemExit(f"the library call for fuse1d at {label} "
+                             f"disagrees with the plain version: {err:.3e}")
+
     def measure(case, err) -> dict:
         ms, plain_ms = time_ms(case["run"]), time_ms(case["plain"])
         library_ms = time_ms(case["library"])
         bound_ms, bound_by = bound(case["nbytes"], case["flops"])
-        return dict(shape=case["shape"], max_abs_err=err, ms=ms,
-                    plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
+        row = dict(shape=case["shape"], max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        return row
+
+    def timed_line(name, row, library) -> str:
+        return (f"kernel {name} {row['shape']}: {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, {library} "
+                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}); max|kernel-plain| "
+                f"{row['max_abs_err']:.3e}, repeat bitwise equal")
 
     report = {}
     for name, sh in timed.items():
         case = shape_case(name, sh, randn)
+        rag = shape_case(name, ragged[name], randn)
         err = max(check(name, "the timed shape", case),
-                  check(name, "a ragged shape",
-                        shape_case(name, ragged[name], randn)))
+                  check(name, "a ragged shape", rag))
+        if is_stage(name, sh):
+            check_library("the timed shape", case, sh)
+        del rag
         row = measure(case, err)
-        print(f"kernel {name} {row['shape']}: {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, {LIBRARY_NAMES[name]} "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}); max|kernel-plain| {err:.3e}, repeat "
-              f"bitwise equal")
+        print(timed_line(name, row, LIBRARY_NAMES[name]))
         src, replaces = sources[name]
         report[name] = dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/"
             f"{src}", replaces=replaces, launches=None, **row,
             library=LIBRARY_NAMES[name], timer_floor_ms=floor_ms, shapes=[])
         del case
+    # fuse1d's 1-D form, the degenerate case of the stage kernel
+    case = shape_case("fuse1d", one_d, randn)
+    err = max(check("fuse1d", "the 1-D timed shape", case),
+              check("fuse1d", "a 1-D ragged shape",
+                    shape_case("fuse1d", one_d_ragged, randn)))
+    report["fuse1d"]["one_d"] = measure(case, err)
+    print(timed_line("fuse1d (1-D)", report["fuse1d"]["one_d"],
+                     case["library_name"]))
+    del case
     # every distinct main-path shape at bucket 8, checked and timed
-    path_rows = []
+    # notes printed beside a row but kept out of the kernels line, whose
+    # numbers are all measured (or, for bound_ms, computed from the inputs):
+    # the SGEMM's tiling and the stage kernel's grid (one thread per 4-channel
+    # output vector, 256 a block; every main-path stage takes VEC = 4)
+    path_rows, stage_rows, notes = [], [], {}
     for name, sh, n in path_shapes:
         case = shape_case(name, sh, randn)
-        row = dict(measure(case, check(name, json.dumps(sh), case)),
-                   launches=n)
+        label = json.dumps(sh)
+        row = dict(measure(case, check(name, label, case)), launches=n)
         if name == "matmul":
-            row["tiling"] = matmul_tiling(sh["m"], sh["k"], sh["n"])
+            til = matmul_tiling(sh["m"], sh["k"], sh["n"])
+            notes[id(row)] = (
+                f", tile {til['bm']}x{til['bn']} bk {til['bk']} tm "
+                f"{til['tm']} ring {til['stages']} split {til['ks']}, "
+                f"{til['blocks']} blocks")
+        if is_stage(name, sh):
+            check_library(label, case, sh)
+            st = sh["stride"]
+            outs = (sh["b"] * -(-sh["h"] // st) * -(-sh["w"] // st) * sh["c"]
+                    * (2 if sh["variant"] == "fuse_full" else 1))
+            notes[id(row)] = f", {-(-outs // (4 * 256))} blocks"
+            stage_rows.append((sh, row))
         report[name]["shapes"].append(row)
         path_rows.append(row)
         del case
         torch.cuda.empty_cache()
     if args.parent:
-        parent_runs.append(parent_times(args.parent, all_shapes, args.seed))
-        parent_ms = [sum(r[i] for r in parent_runs) / len(parent_runs)
-                     for i in range(len(all_shapes))]
+        parent_runs.append(parent_times(args.parent, all_shapes, args.seed,
+                                        args.profile))
+
+        def mean(key, i):
+            vals = [r[key][i] for r in parent_runs]
+            return None if vals[0] is None else sum(vals) / len(vals)
+
+        first = len(timed) + 1
         for i, name in enumerate(timed):
-            report[name]["parent_ms"] = parent_ms[i]
-        for row, ms in zip(path_rows, parent_ms[len(timed):]):
-            row["parent_ms"] = ms
+            report[name]["parent_ms"] = mean("ms", i)
+        report["fuse1d"]["one_d"]["parent_ms"] = mean("ms", len(timed))
+        for i, row in enumerate(path_rows, first):
+            row["parent_ms"] = mean("ms", i)
+            if mean("ms_spin2", i) is not None:
+                row["parent_ms_spin2"] = mean("ms_spin2", i)
+                row["parent_kernels"] = parent_runs[0]["kernels"][i]
     for name, entry in report.items():
         rows = entry["shapes"]
         sums = {key: sum(r["launches"] * r[key] for r in rows)
                 for key in ("ms", "bound_ms", "library_ms")
-                + (("parent_ms",) if args.parent else ())}
+                + (("parent_ms",) if args.parent else ())
+                + (("parent_ms_spin2",) if args.parent and name == "fuse1d"
+                   else ())}
         entry["main_path"] = dict(launches=sum(r["launches"] for r in rows),
                                   **sums)
         print(f"kernel {name}: {len(rows)} main-path shapes at bucket {b}")
         for r in rows:
             par = (f", parent {r['parent_ms']:.4f}" if "parent_ms" in r
                    else "")
-            til = r.get("tiling")
-            til = (f", tile {til['bm']}x{til['bn']} bk {til['bk']} tm "
-                   f"{til['tm']} ring {til['stages']} split {til['ks']}, "
-                   f"{til['blocks']} blocks" if til else "")
+            til = notes.get(id(r), "")
+            if "parent_ms_spin2" in r:
+                til += (f", parent at double spin "
+                        f"{r['parent_ms_spin2']:.4f}")
             print(f"  {r['launches']:2d}x {r['shape']}: {r['ms']:.4f} ms"
                   f"{par}, library {r['library_ms']:.4f}, bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']}), plain "
@@ -517,6 +686,9 @@ def main() -> int:
               f"launches x library {sums['library_ms']:.4f}"
               + (f", launches x parent {sums['parent_ms']:.4f}"
                  if args.parent else "")
+              + (f", launches x parent at double spin "
+                 f"{sums['parent_ms_spin2']:.4f}"
+                 if "parent_ms_spin2" in sums else "")
               + f" ({entry['main_path']['launches']} launches)")
     torch.cuda.empty_cache()
 
@@ -528,9 +700,13 @@ def main() -> int:
         for bk in ("torch", "cuda_nofused"):
             regs[bk].register(net, v, params=m.params)
     keys = regs["cuda"].keys()
-    images = [rng.standard_normal((int(rng.integers(160, 289)),
-                                   int(rng.integers(160, 289)), 3)
-                                  ).astype(np.float32) for _ in range(16)]
+    # the requests draw from a generator of their own, so that they stay the
+    # same whatever the phases above check
+    img_rng = np.random.default_rng((args.seed, 4))
+    images = [img_rng.standard_normal((int(img_rng.integers(160, 289)),
+                                       int(img_rng.integers(160, 289)), 3)
+                                      ).astype(np.float32)
+              for _ in range(16)]
 
     def serve(reg):
         engine = VisionServeEngine(reg, buckets=(1, 2, 4, 8))
@@ -598,6 +774,22 @@ def main() -> int:
                              f"but the main-path sums weight {listed}")
     if args.profile:
         profile_round(lambda: serve(regs["cuda"]))
+        # one launch per FuSe stage: no copy, pad or concat kernel around it
+        for sh, row in stage_rows:
+            n, names = device_kernels(shape_case("fuse1d", sh, randn)["run"])
+            row["device_kernels"] = n
+            par = (f" (parent: {row['parent_kernels']})"
+                   if row.get("parent_kernels") is not None else "")
+            print(f"profile: fuse1d stage {row['shape']}: {n} device kernel"
+                  f"{'s' if n != 1 else ''} {names}{par}")
+            if n != 1:
+                raise SystemExit(f"fuse1d stage {row['shape']} ran {n} "
+                                 f"device kernels, not one")
+        n_fwd = forward_kernels(args.seed, dev)
+        par = (f" (parent: {parent_runs[0]['forward_kernels']})"
+               if parent_runs else "")
+        print(f"profile: one fuse_half forward at bucket {b}: {n_fwd} device "
+              f"kernels and copies{par}")
 
     print(card)
     print(json.dumps({"kernels": list(report.values())}))

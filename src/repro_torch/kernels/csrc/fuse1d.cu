@@ -1,61 +1,166 @@
-// FuSeConv's primitive: a bank of independent 1-D convolutions,
-//   y[n, t, c] = sum_k x_pad[n, t + k, c] * w[k, c].
+// A FuSe spatial stage in one launch: the Kx1 row bank and the 1xK column
+// bank over an NHWC tensor, XLA-SAME padding, stride 1 or 2,
+//   y[b, oy, ox, j]      = sum_t x[b, oy*s - lo_h + t, ox*s, j]          * w_row[t, j]
+//   y[b, oy, ox, c_r+j'] = sum_t x[b, oy*s, ox*s - lo_w + t, col_src0+j'] * w_col[t, j']
+// with out-of-range taps reading zero.  fuse_half puts the row bank on
+// channels [0, c_r) and the column bank on [c_r, C) (col_src0 = c_r);
+// fuse_full runs both banks on every channel (c_r = c_c = C, col_src0 = 0)
+// into 2C output channels, rows first.  One bank alone is c_c = 0 or
+// c_r = 0, and the 1-D primitive y[n, t, c] = sum_k x_pad[n, t+k, c] w[k, c]
+// is the row bank over (n, T+K-1, 1, C) with no halo and stride 1.
 //
 // Replaces: src/repro/kernels/fuse1d.py::fuse1d (body _fuse1d_kernel, the
-// pl.pallas_call at fuse1d.py:65), which DMAs a (T+K-1, 128-channel) slab
-// into VMEM and applies the K taps as shifted broadcast-FMAs.
+// pl.pallas_call at fuse1d.py:65) together with the layout plumbing that
+// src/repro/kernels/ops.py:65-122 wraps around it on the TPU: a transpose
+// that folds W into the problem axis for the row bank, F.pad of the SAME
+// halo, two 1-D launches at full resolution, a strided subsample and a
+// concat.  Those copies and the thrown-away outputs (3.9x the kept ones at
+// stride 2) were VMEM schedule, not semantics.  Here the kernel reads x in
+// place, computes only the kept (Ho, Wo) outputs and writes y once.
 //
 // What bounds it on the H100: device memory.  Each output costs K FMAs
-// (K = 3 or 5 on MobileNetV3-Large) against one input read and one output
-// write of 4 bytes each, about 1 flop per byte, far below the card's
-// 20 flops per byte at fp32.  The least time is (inputs + outputs) bytes
-// over 3.35 TB/s.
+// against its share of the input it needs and one 4-byte write, about 1
+// flop per byte against the card's 20 at fp32.  The least time is the
+// bytes of the input the kept outputs touch (chip_smoke.py::
+// fuse_input_elems: at stride 2 the row bank reads every other column, the
+// column bank every other row) plus weights and outputs, over 3.35 TB/s.
 //
-// Design: one thread per output element, channel fastest, so a warp reads
-// 32 neighbouring channels of one time step (coalesced in the NHWC-derived
-// (N, T, C) layout) and the K-1 re-reads of a time step hit L1/L2, not
-// device memory.  The taps are unrolled for K = 3, 5 and 7 (a compile-time
-// K) and looped otherwise.  The caller pads T (the reference's contract); there is no
-// channel padding or blocking to undo.
+// The design: one thread per 4-channel vector of one output pixel (VEC = 4:
+// 16-byte loads and stores), channels fastest, so a warp reads neighbouring
+// 16-byte vectors of one or two pixels.  Each thread issues its K tap loads
+// back to back (K is a template parameter, so they unroll and are all in
+// flight at once) through the read-only path; the K-fold reuse of an input
+// vector along the bank's axis is left to L1 (column bank: neighbouring
+// pixels of one block) and L2 (row bank: the rows above and below belong to
+// other blocks).  A second design that staged each output tile's input
+// boxes in shared memory with cp.async, as csrc/fused.cu::fuseconv_kernel
+// does, was 10-17% slower at every main-path stage on the H100 (PERF.md)
+// and was dropped.
+//
+// Every output accumulates its taps in order 0..K-1 with fmaf from
+// zero, an out-of-range tap contributing fmaf(0, w, acc), exactly as the
+// first port's 1-D kernel did over a zero-padded input; no atomics, no
+// reduction across threads, so a repeat call is bitwise equal.  C, c_r,
+// c_c or col_src0 not a multiple of 4 (or a pointer not 16-byte aligned)
+// takes the VEC = 1 instantiation.  K = 3, 5, 7 have their own
+// instantiations, any other K a runtime-K one.  Indices are 32-bit: the
+// wrapper keeps every tensor below 2^30 elements.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 
-template <int KS>
+struct StageArgs {
+  const float* x;    // (b, h, w, c)
+  const float* wr;   // (k, c_r)  row-bank taps
+  const float* wc;   // (k, c_c)  column-bank taps
+  float* y;          // (b, oh, ow, c_sp)
+  int b, h, w, c, k, stride, lo_h, lo_w, oh, ow;
+  int c_r, c_c, col_src0, c_sp;
+};
+
+__device__ __forceinline__ bool inside(int i, int n) {
+  return static_cast<unsigned>(i) < static_cast<unsigned>(n);
+}
+
+template <int VEC>
+__device__ __forceinline__ void ldg(float (&r)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else {
+    r[0] = __ldg(p);
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void stg(float* p, const float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r[0], r[1], r[2], r[3]);
+  } else {
+    *p = r[0];
+  }
+}
+
+template <int KS, int VEC>
 __global__ void __launch_bounds__(THREADS)
-fuse1d_kernel(const float* __restrict__ x, const float* __restrict__ w,
-              float* __restrict__ y, int n, int t, int c, int k_rt) {
-  const int k = KS > 0 ? KS : k_rt;
-  // int indices: the wrapper keeps every tensor below 2^30 elements
+stage_direct_kernel(StageArgs p) {
+  const int k = KS > 0 ? KS : p.k;
+  const int ng = p.c_sp / VEC;
   const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n * t * c) return;
-  const int ch = i % c;
-  const int r = i / c;
-  const int tt = r % t;
-  const int nn = r / t;
-  const float* xp = x + (nn * (t + k - 1) + tt) * c + ch;
-  float acc = 0.0f;
+  if (i >= p.b * p.oh * p.ow * ng) return;
+  int r = i / ng;
+  const int j = (i - r * ng) * VEC;
+  const int ox = r % p.ow;
+  r /= p.ow;
+  const int oy = r % p.oh;
+  const int bb = r / p.oh;
+  const int s = p.stride;
+  const bool row = j < p.c_r;
+  // the first tap's coordinate along the bank's axis, that axis's extent,
+  // and the elements from one tap to the next
+  const int q0 = row ? oy * s - p.lo_h : ox * s - p.lo_w;
+  const int n = row ? p.h : p.w;
+  const int step = row ? p.w * p.c : p.c;
+  const int iy = row ? q0 : oy * s, ix = row ? ox * s : q0;
+  const int off = ((bb * p.h + iy) * p.w + ix) * p.c +
+                  (row ? j : j - p.c_r + p.col_src0);
+  const float* wp = row ? p.wr + j : p.wc + (j - p.c_r);
+  const int wstep = row ? p.c_r : p.c_c;
+  float acc[VEC];
 #pragma unroll
-  for (int tap = 0; tap < k; ++tap)
-    acc = fmaf(xp[tap * c], w[tap * c + ch], acc);
-  y[i] = acc;
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.0f;
+#pragma unroll
+  for (int t = 0; t < k; ++t) {
+    float xv[VEC], wv[VEC];
+    ldg<VEC>(wv, wp + t * wstep);
+    if (inside(q0 + t, n)) {
+      ldg<VEC>(xv, p.x + off + t * step);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) xv[e] = 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = fmaf(xv[e], wv[e], acc[e]);
+  }
+  stg<VEC>(p.y + i * VEC, acc);
+}
+
+template <int KS, int VEC>
+void launch(const StageArgs& p, cudaStream_t s) {
+  const long long total =
+      static_cast<long long>(p.b) * p.oh * p.ow * (p.c_sp / VEC);
+  const unsigned blocks =
+      static_cast<unsigned>((total + THREADS - 1) / THREADS);
+  stage_direct_kernel<KS, VEC><<<blocks, THREADS, 0, s>>>(p);
+}
+
+template <int VEC>
+void launch_k(const StageArgs& p, cudaStream_t s) {
+  switch (p.k) {
+    case 3: launch<3, VEC>(p, s); break;
+    case 5: launch<5, VEC>(p, s); break;
+    case 7: launch<7, VEC>(p, s); break;
+    default: launch<0, VEC>(p, s); break;
+  }
 }
 
 }  // namespace
 
-// x: (n, t + k - 1, c), w: (k, c), y: (n, t, c); row-major fp32.
-extern "C" int repro_fuse1d_f32(const float* x, const float* w, float* y,
-                                int n, int t, int c, int k, void* stream) {
-  const long long total = static_cast<long long>(n) * t * c;
-  const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
+// x: (b, h, w, c), w_row: (k, c_r), w_col: (k, c_c), y: (b, oh, ow, c_sp)
+// with c_sp = c_r + c_c; row-major fp32.  vec is 4 or 1.
+extern "C" int repro_fuse_stage_f32(
+    const float* x, const float* w_row, const float* w_col, float* y, int b,
+    int h, int w, int c, int k, int stride, int lo_h, int lo_w, int oh,
+    int ow, int c_r, int c_c, int col_src0, int vec, void* stream) {
+  const int c_sp = c_r + c_c;
+  if ((vec != 1 && vec != 4) || c_sp % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StageArgs p{x, w_row, w_col, y, b, h, w, c, k, stride, lo_h, lo_w, oh, ow,
+              c_r, c_c, col_src0, c_sp};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 3: fuse1d_kernel<3><<<blocks, THREADS, 0, s>>>(x, w, y, n, t, c, k); break;
-    case 5: fuse1d_kernel<5><<<blocks, THREADS, 0, s>>>(x, w, y, n, t, c, k); break;
-    case 7: fuse1d_kernel<7><<<blocks, THREADS, 0, s>>>(x, w, y, n, t, c, k); break;
-    default: fuse1d_kernel<0><<<blocks, THREADS, 0, s>>>(x, w, y, n, t, c, k); break;
-  }
+  if (vec == 4) launch_k<4>(p, s);
+  else launch_k<1>(p, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,23 +1,42 @@
-"""FuSeConv's primitive: a bank of independent 1-D convolutions.
+"""FuSeConv's primitive, a bank of independent 1-D convolutions, and the
+FuSe spatial stage built from it.
 
-Port of ``repro.kernels.fuse1d.fuse1d``:
-``y[n, t, c] = sum_k x_pad[n, t + k, c] * w[k, c]`` with x_pad
-(N, T + K - 1, C) already padded by the caller (``ops.py``) and w (K, C).
-``fuse1d`` launches the CUDA kernel of ``csrc/fuse1d.cu`` for CUDA tensors
-and runs ``fuse1d_plain`` (the port of ``repro.kernels.ref.fuse1d_ref``)
-for CPU tensors.  ``fuse1d.launches`` counts kernel launches.
+Port of ``repro.kernels.fuse1d.fuse1d`` and of the stage that
+``repro.kernels.ops.fuse_conv2d_half``/``full`` compose from it on the TPU:
+
+``fuse1d``
+    ``y[n, t, c] = sum_k x_pad[n, t + k, c] * w[k, c]`` with x_pad
+    (N, T + K - 1, C) already padded by the caller and w (K, C).
+``fuse_stage``
+    A whole FuSe spatial stage over x (B, H, W, C) NHWC: the Kx1 row bank
+    along H and the 1xK column bank along W, XLA-SAME padding, stride 1 or
+    2.  ``fuse_half`` gives the row bank channels [0, c_r) and the column
+    bank [c_r, C) (c_r = w_row's width); ``fuse_full`` runs both on every
+    channel into 2C outputs, rows first.
+
+Both launch ``csrc/fuse1d.cu`` for CUDA tensors, one launch per call, with
+no pad, transpose or concat around it (``fuse1d`` is the kernel's row bank
+over (N, T + K - 1, 1, C) with no halo); for CPU tensors they run their
+plain versions.  ``fuse_stage_plain`` is the TPU path's composition: the
+rows/cols reduction onto ``fuse1d_plain`` (transpose, SAME pad, 1-D bank
+at full resolution, strided subsample) and the concat.  ``fuse1d.launches``
+counts the launches of both wrappers.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused import _bank_split, _vec, same_pad
 
-_SIGNATURES = {"repro_fuse1d_f32": (_build.PTR,) * 3 + (_build.INT,) * 4
-               + (_build.PTR,)}
+Tensor = torch.Tensor
+
+_P, _I = _build.PTR, _build.INT
+_SIGNATURES = {"repro_fuse_stage_f32": (_P,) * 4 + (_I,) * 14 + (_P,)}
 
 
-def fuse1d_plain(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def fuse1d_plain(x_pad: Tensor, w: Tensor) -> Tensor:
     """Plain PyTorch version: K shifted multiply-adds in fp32."""
     k = w.shape[0]
     t = x_pad.shape[1] - k + 1
@@ -28,7 +47,23 @@ def fuse1d_plain(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x_pad.dtype)
 
 
-def fuse1d(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _launch(x: Tensor, w_row: Tensor, w_col: Tensor, y: Tensor, k: int,
+            stride: int, lo_h: int, lo_w: int, col_src0: int) -> None:
+    """One launch of ``repro_fuse_stage_f32`` on x (B, H, W, C) into
+    y (B, Ho, Wo, c_r + c_c)."""
+    b, h, wd, c = x.shape
+    oh, ow = y.shape[1], y.shape[2]
+    c_r, c_c = w_row.shape[1], w_col.shape[1]
+    vec = _vec(x, w_row, w_col, y, dims=(c, c_r, c_c, col_src0))
+    lib = _build.library("fuse1d", _SIGNATURES)
+    _build.launch("fuse1d", lib.repro_fuse_stage_f32, y.device,
+                  x.data_ptr(), w_row.data_ptr(), w_col.data_ptr(),
+                  y.data_ptr(), b, h, wd, c, k, stride, lo_h, lo_w, oh, ow,
+                  c_r, c_c, col_src0, vec)
+    fuse1d.launches += 1
+
+
+def fuse1d(x_pad: Tensor, w: Tensor) -> Tensor:
     """Bank of independent 1-D convolutions.  x_pad: (N, T + K - 1, C),
     w: (K, C); returns (N, T, C)."""
     dev = _build.check_inputs("fuse1d", x_pad, w)
@@ -43,13 +78,72 @@ def fuse1d(x_pad: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if dev.type == "cpu":
         return fuse1d_plain(x_pad, w)
     y = torch.empty((n, t, c), device=dev, dtype=torch.float32)
-    if y.numel() == 0:
-        return y
-    _build.check_size("fuse1d", y)
-    lib = _build.library("fuse1d", _SIGNATURES)
-    _build.launch("fuse1d", lib.repro_fuse1d_f32, dev, x_pad.data_ptr(),
-                  w.data_ptr(), y.data_ptr(), n, t, c, k)
-    fuse1d.launches += 1
+    if y.numel():
+        _build.check_size("fuse1d", y)
+        _launch(x_pad.view(n, tp, 1, c), w, w[:, :0], y.view(n, t, 1, c), k,
+                1, 0, 0, 0)
+    return y
+
+
+def _rows_plain(x: Tensor, w_row: Tensor, *, stride: int = 1) -> Tensor:
+    """Kx1 (vertical) bank through ``fuse1d_plain``: W folded into the
+    problem axis, H SAME-padded, every row computed, then subsampled.
+    x: (B, H, W, C), w_row: (K, C)."""
+    b, h, wdim, c = x.shape
+    k = w_row.shape[0]
+    xt = x.permute(0, 2, 1, 3).reshape(b * wdim, h, c)
+    out_h, lo, hi = same_pad(h, k, stride)
+    y = fuse1d_plain(F.pad(xt, (0, 0, lo, hi)), w_row)     # (B*W, T, C)
+    y = y.reshape(b, wdim, y.shape[1], c).permute(0, 2, 1, 3)
+    return y[:, ::stride, ::stride][:, :out_h]
+
+
+def _cols_plain(x: Tensor, w_col: Tensor, *, stride: int = 1) -> Tensor:
+    """1xK (horizontal) bank through ``fuse1d_plain``.  x: (B, H, W, C),
+    w_col: (K, C)."""
+    b, h, wdim, c = x.shape
+    k = w_col.shape[0]
+    out_w, lo, hi = same_pad(wdim, k, stride)
+    y = fuse1d_plain(F.pad(x.reshape(b * h, wdim, c), (0, 0, lo, hi)), w_col)
+    y = y.reshape(b, h, y.shape[1], c)
+    return y[:, ::stride, ::stride][:, :, :out_w]
+
+
+def fuse_stage_plain(x: Tensor, w_row: Tensor, w_col: Tensor, *,
+                     variant: str = "fuse_half", stride: int = 1) -> Tensor:
+    """Plain PyTorch version of ``fuse_stage``: both banks through
+    ``fuse1d_plain``, then the concat."""
+    c_r, _ = _bank_split(variant, x, w_row, w_col)
+    x_row, x_col = (x, x) if variant == "fuse_full" else (x[..., :c_r],
+                                                          x[..., c_r:])
+    return torch.cat([_rows_plain(x_row, w_row, stride=stride),
+                      _cols_plain(x_col, w_col, stride=stride)], dim=-1)
+
+
+def fuse_stage(x: Tensor, w_row: Tensor, w_col: Tensor, *,
+               variant: str = "fuse_half", stride: int = 1) -> Tensor:
+    """FuSe spatial stage in one launch.  x: (B, H, W, C) NHWC; w_row
+    (K, c_r), w_col (K, c_c) with c_r = c_c = C for ``fuse_full`` (2C
+    outputs) and c_r + c_c = C for ``fuse_half`` (either may be 0: one
+    bank alone).  Returns (B, Ho, Wo, c_r + c_c), SAME padding."""
+    c_r, c_sp = _bank_split(variant, x, w_row, w_col)
+    if x.ndim != 4 or w_row.ndim != 2 or w_col.shape[0] != w_row.shape[0] \
+            or w_row.shape[0] < 1:
+        raise ValueError(f"fuse_stage: x {tuple(x.shape)}, w_row "
+                         f"{tuple(w_row.shape)}, w_col {tuple(w_col.shape)}")
+    dev = _build.check_inputs("fuse_stage", x, w_row, w_col)
+    if dev.type == "cpu":
+        return fuse_stage_plain(x, w_row, w_col, variant=variant,
+                                stride=stride)
+    b, h, wd, _ = x.shape
+    k = w_row.shape[0]
+    out_h, lo_h, _ = same_pad(h, k, stride)
+    out_w, lo_w, _ = same_pad(wd, k, stride)
+    y = torch.empty((b, out_h, out_w, c_sp), device=dev, dtype=torch.float32)
+    if y.numel():
+        _build.check_size("fuse_stage", y)
+        _launch(x, w_row, w_col, y, k, stride, lo_h, lo_w,
+                c_r if variant == "fuse_half" else 0)
     return y
 
 

@@ -1,10 +1,12 @@
 """Model-facing wrappers around the CUDA kernels.
 
-Port of ``repro.kernels.ops``: the wrappers own layout plumbing — SAME
-padding with XLA's split, and the row/column transposes that reduce FuSe-2D
-to the ``fuse1d`` primitive.  The TPU path's row-window fold and
-``MAX_T_CHUNK`` chunking bound VMEM tiles; the CUDA kernels index the
-whole tensor, so neither is needed here.
+Port of ``repro.kernels.ops``.  On the TPU these wrappers own layout
+plumbing: SAME padding with XLA's split, the row/column transposes that
+reduce FuSe-2D to the ``fuse1d`` primitive, the row-window fold and
+``MAX_T_CHUNK`` chunking that bound VMEM tiles, and the concat.  Here a
+FuSe spatial stage, or one of its banks alone, is one launch of
+``fuse1d.fuse_stage``, which indexes x in place and writes its output once
+(the TPU path's composition is its plain version).
 
 ``fuseconv_fused`` and ``depthwise_kxk`` are re-exported so
 ``zoo.apply_network`` has a single kernel namespace, and
@@ -16,7 +18,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels import fuse1d as _fuse1d
 from repro_torch.kernels import fused as _fused
@@ -44,48 +45,33 @@ def reset_launch_counts() -> None:
 
 
 def fuse_conv2d_rows(x: Tensor, w_row: Tensor, *, stride: int = 1) -> Tensor:
-    """Kx1 (vertical) bank via fuse1d.  x: (B,H,W,C), w_row: (K,C)."""
-    b, h, wdim, c = x.shape
-    k = w_row.shape[0]
-    # conv along H: fold W into the problem axis -> (B*W, H, C)
-    xt = x.permute(0, 2, 1, 3).reshape(b * wdim, h, c)
-    out_h, lo, hi = _fused.same_pad(h, k, stride)
-    x_pad = F.pad(xt, (0, 0, lo, hi))
-    y = _fuse1d.fuse1d(x_pad.contiguous(), w_row.contiguous())  # (B*W, T, C)
-    y = y.reshape(b, wdim, y.shape[1], c).permute(0, 2, 1, 3)
-    if stride > 1:
-        y = y[:, ::stride, ::stride, :]
-    return y[:, :out_h]
+    """Kx1 (vertical) bank.  x: (B,H,W,C), w_row: (K,C)."""
+    return _fuse1d.fuse_stage(x.contiguous(), w_row.contiguous(),
+                              w_row.new_empty((w_row.shape[0], 0)),
+                              stride=stride)
 
 
 def fuse_conv2d_cols(x: Tensor, w_col: Tensor, *, stride: int = 1) -> Tensor:
-    """1xK (horizontal) bank via fuse1d.  x: (B,H,W,C), w_col: (K,C)."""
-    b, h, wdim, c = x.shape
-    k = w_col.shape[0]
-    xt = x.reshape(b * h, wdim, c)
-    out_w, lo, hi = _fused.same_pad(wdim, k, stride)
-    x_pad = F.pad(xt, (0, 0, lo, hi))
-    y = _fuse1d.fuse1d(x_pad.contiguous(), w_col.contiguous())
-    y = y.reshape(b, h, y.shape[1], c)
-    if stride > 1:
-        y = y[:, ::stride, ::stride, :]
-    return y[:, :, :out_w]
+    """1xK (horizontal) bank.  x: (B,H,W,C), w_col: (K,C)."""
+    return _fuse1d.fuse_stage(x.contiguous(),
+                              w_col.new_empty((w_col.shape[0], 0)),
+                              w_col.contiguous(), stride=stride)
 
 
 def fuse_conv2d_half(x: Tensor, w_row: Tensor, w_col: Tensor, *,
                      stride: int = 1) -> Tensor:
-    c_r = w_row.shape[-1]
-    y_r = fuse_conv2d_rows(x[..., :c_r], w_row, stride=stride)
-    y_c = fuse_conv2d_cols(x[..., c_r:], w_col, stride=stride)
-    return torch.cat([y_r, y_c], dim=-1)
+    """FuSe-Half: row bank on channels [:C_r], column bank on [C_r:]."""
+    return _fuse1d.fuse_stage(x.contiguous(), w_row.contiguous(),
+                              w_col.contiguous(), variant="fuse_half",
+                              stride=stride)
 
 
 def fuse_conv2d_full(x: Tensor, w_row: Tensor, w_col: Tensor, *,
                      stride: int = 1) -> Tensor:
     """FuSe-Full: every channel gets a row AND a column filter -> 2C out."""
-    y_r = fuse_conv2d_rows(x, w_row, stride=stride)
-    y_c = fuse_conv2d_cols(x, w_col, stride=stride)
-    return torch.cat([y_r, y_c], dim=-1)
+    return _fuse1d.fuse_stage(x.contiguous(), w_row.contiguous(),
+                              w_col.contiguous(), variant="fuse_full",
+                              stride=stride)
 
 
 def pointwise(x: Tensor, w: Tensor) -> Tensor:

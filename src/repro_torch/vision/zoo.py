@@ -243,9 +243,9 @@ def init_network(generator: torch.Generator, net: NetworkDef,
 
 def _apply_spatial(p: dict, spec: fc.SpatialOpSpec, x: Tensor,
                    backend: kb.Backend) -> Tensor:
-    """Spatial stage on the selected backend: the decomposed 1-D banks
-    through ``fuse1d`` for FuSe variants and ``depthwise_kxk`` for the
-    baseline on ``cuda``; plain ops on ``torch``."""
+    """Spatial stage on the selected backend: one ``fuse1d.fuse_stage``
+    launch for FuSe variants and ``depthwise_kxk`` for the baseline on
+    ``cuda``; plain ops on ``torch``."""
     if backend.use_kernels and spec.variant in ("fuse_half", "fuse_full"):
         f = (kops.fuse_conv2d_half if spec.variant == "fuse_half"
              else kops.fuse_conv2d_full)
@@ -360,28 +360,22 @@ def kernel_launches(net: NetworkDef, variant="depthwise",
     ``(kernel name, shape dict)``:
 
     - ``matmul``: ``m, k, n`` (a (m, k) @ (k, n));
-    - ``fuse1d``: ``n, t, c, k`` (x_pad (n, t, c), w (k, c));
+    - ``fuse1d``: ``b, h, w, c, k, stride, variant`` (one FuSe spatial
+      stage, ``fuse1d.fuse_stage``);
     - ``depthwise_kxk``: ``b, h, w, c, k, stride``;
     - ``fuseconv_fused``: ``b, h, w, c, k, stride, variant, cout, act``.
     """
-    from repro_torch.kernels.fused import same_pad
     variants = _variant_list(net, variant)
     out: List[tuple] = []
     h = w = net.resolution
     c = net.in_channels
 
     def spatial(v, k, ch, stride):
+        shape = dict(b=batch, h=h, w=w, c=ch, k=k, stride=stride)
         if v == "depthwise":
-            out.append(("depthwise_kxk", dict(b=batch, h=h, w=w, c=ch, k=k,
-                                              stride=stride)))
-            return
-        c_r = ch if v == "fuse_full" else ch // 2
-        for axis_len, other, cb in ((h, w, c_r), (w, h, ch - c_r
-                                                  if v == "fuse_half"
-                                                  else ch)):
-            _, lo, hi = same_pad(axis_len, k, stride)
-            out.append(("fuse1d", dict(n=batch * other, t=axis_len + lo + hi,
-                                       c=cb, k=k)))
+            out.append(("depthwise_kxk", shape))
+        else:
+            out.append(("fuse1d", dict(shape, variant=v)))
 
     vi = 0
     for b in net.blocks:

@@ -100,6 +100,84 @@ def test_fuse_conv2d_ops_match_pallas_ops(h, w, c, k, stride):
                                       stride=stride, interpret=True)])
 
 
+# (h, w, c, k, stride): even and odd extents at stride 1 and 2, K 3, 5, 7
+# and a K with no instantiation of its own (4), H or W below K, an odd row
+# bank (c_r = C // 2 odd), C not a multiple of 4, and a 1x1 image.
+STAGE_GRID = [(8, 8, 8, 3, 1), (13, 7, 6, 5, 1), (16, 10, 12, 3, 2),
+              (11, 13, 5, 5, 2), (9, 12, 14, 7, 2), (3, 9, 10, 5, 1),
+              (6, 2, 7, 7, 2), (10, 11, 16, 4, 2), (1, 1, 4, 3, 2)]
+
+
+@pytest.mark.parametrize("h,w,c,k,stride", STAGE_GRID)
+def test_fuse_stage_matches_pallas_ops(h, w, c, k, stride):
+    """The FuSe stage (``fuse1d.fuse_stage``, its plain version, and the
+    ``ops`` wrappers on the CPU) against the JAX ops wrappers, which run
+    the Pallas ``fuse1d`` in interpret mode: fuse_half and fuse_full, and
+    each bank alone."""
+    x = _x((2, h, w, c))
+    w_row, w_col = _x((k, c), seed=1, scale=0.5), _x((k, c), seed=2, scale=0.5)
+    tx, tr, tc = _t(x), _t(w_row), _t(w_col)
+    full = jops.fuse_conv2d_full(x, w_row, w_col, stride=stride,
+                                 interpret=True)
+    _all_close([tfuse1d.fuse_stage_plain(tx, tr, tc, variant="fuse_full",
+                                         stride=stride),
+                tfuse1d.fuse_stage(tx, tr, tc, variant="fuse_full",
+                                   stride=stride),
+                tops.fuse_conv2d_full(tx, tr, tc, stride=stride)], [full])
+    c_r = c // 2
+    half = jops.fuse_conv2d_half(x, w_row[:, :c_r], w_col[:, c_r:],
+                                 stride=stride, interpret=True)
+    hr, hc = _t(w_row[:, :c_r]), _t(w_col[:, c_r:])
+    _all_close([tfuse1d.fuse_stage_plain(tx, hr, hc, stride=stride),
+                tfuse1d.fuse_stage(tx, hr, hc, variant="fuse_half",
+                                   stride=stride),
+                tops.fuse_conv2d_half(tx, hr, hc, stride=stride)], [half])
+    # each bank alone is the first or second half of fuse_full's output
+    _all_close([tops.fuse_conv2d_rows(tx, tr, stride=stride)],
+               [np.asarray(full)[..., :c]])
+    _all_close([tops.fuse_conv2d_cols(tx, tc, stride=stride)],
+               [np.asarray(full)[..., c:]])
+
+
+def test_fuse_stage_checks_its_banks():
+    x = torch.zeros(1, 5, 5, 6)
+    with pytest.raises(ValueError):      # banks do not cover C
+        tfuse1d.fuse_stage(x, torch.zeros(3, 3), torch.zeros(3, 2))
+    with pytest.raises(ValueError):      # fuse_full needs C in each bank
+        tfuse1d.fuse_stage(x, torch.zeros(3, 3), torch.zeros(3, 3),
+                           variant="fuse_full")
+    with pytest.raises(ValueError):      # taps differ between the banks
+        tfuse1d.fuse_stage(x, torch.zeros(3, 3), torch.zeros(5, 3))
+    with pytest.raises(ValueError):
+        tfuse1d.fuse_stage(x.double(), torch.zeros(3, 3), torch.zeros(3, 3))
+
+
+def _stage_shapes(batch):
+    """(b, oh, ow, c_sp, k, stride) of the FuSe stages MobileNetV3-Large
+    (224 px, width 1.0) runs at ``batch``."""
+    net = tzoo.mobilenet_v3_large()
+    return sorted({(sh["b"], -(-sh["h"] // sh["stride"]),
+                    -(-sh["w"] // sh["stride"]), sh["c"], sh["k"],
+                    sh["stride"])
+                   for name, sh in tzoo.kernel_launches(net, "fuse_half",
+                                                        batch)
+                   if name == "fuse1d"})
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("batch", [8, 1])
+def test_stage_launches_fill_the_card(batch, vec):
+    """Every main-path stage at bucket 8 starts at least a block per SM:
+    the stage kernel's grid is one thread per output vector, 256 threads
+    (csrc/fuse1d.cu::THREADS) a block."""
+    shapes = _stage_shapes(batch)
+    assert shapes
+    for b, oh, ow, c_sp, k, stride in shapes:
+        assert c_sp % 4 == 0
+        blocks = -(-b * oh * ow * (c_sp // vec) // 256)
+        assert blocks >= (tfused.SMS if batch == 8 else 1)
+
+
 # ---------------------------------------------------------------------------
 # depthwise_kxk
 # ---------------------------------------------------------------------------
@@ -489,3 +567,122 @@ def test_matmul_on_gpu(m, k, n, offset):
     tol = 1e-4 * max(1.0, plain.abs().max().item())
     assert (got - plain).abs().max().item() <= tol
     assert torch.equal(got, again)
+
+
+def _st(b, h, w, c, k, stride, variant, **extra):
+    return dict(b=b, h=h, w=w, c=c, k=k, stride=stride, variant=variant,
+                **extra)
+
+
+# Edges of the stage kernel: C and c_r not multiples of 4 (the 4-byte
+# instantiation), an odd row bank, H or W below K, a 1x1 image, K = 4, 31
+# and 61 (the runtime-K instantiation), stride 2 over even and odd extents,
+# and an input that is not 16-byte aligned.
+STAGE_EDGES = [
+    _st(2, 13, 11, 37, 5, 2, "fuse_full"), _st(2, 13, 11, 37, 5, 2,
+                                               "fuse_half"),
+    _st(2, 9, 7, 38, 3, 1, "fuse_half"), _st(2, 2, 9, 16, 5, 1, "fuse_half"),
+    _st(2, 9, 3, 16, 7, 2, "fuse_half"), _st(2, 1, 1, 24, 3, 2, "fuse_full"),
+    _st(2, 12, 12, 24, 4, 2, "fuse_half"),
+    _st(2, 38, 30, 64, 3, 2, "fuse_full"),
+    _st(2, 37, 29, 64, 5, 1, "fuse_half"),
+    _st(2, 15, 14, 36, 3, 2, "fuse_half", offset=1),
+    _st(1, 20, 20, 32, 31, 1, "fuse_half"),
+    _st(64, 24, 24, 64, 61, 2, "fuse_half"),
+]
+STAGE_GPU_CASES = [sh for _, sh in _main_path_cases(("fuse1d",))] \
+    + STAGE_EDGES
+
+
+def _stage_id(sh):
+    off = "-unaligned" if sh.get("offset") else ""
+    return (f"b{sh['b']}-{sh['h']}x{sh['w']}x{sh['c']}-k{sh['k']}"
+            f"s{sh['stride']}-{sh['variant']}{off}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sh", STAGE_GPU_CASES, ids=_stage_id)
+def test_fuse_stage_on_gpu(sh):
+    """``fuse_stage`` against ``fuse_stage_plain`` at
+    ``1e-4 * max(1, max|plain|)``, at every main-path FuSe stage of buckets
+    8 and 1 and at the kernel's edges; a second call must be bitwise equal
+    to the first, and each call is one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    b, h, w, c, k = (sh[key] for key in "bhwck")
+    off = sh.get("offset", 0)
+    buf = torch.empty(b * h * w * c + off, device=dev)
+    x = buf[off:].view(b, h, w, c)
+    x.copy_(torch.from_numpy(rng.standard_normal((b, h, w, c))
+                             .astype(np.float32)))
+    full = sh["variant"] == "fuse_full"
+    c_r = c if full else c // 2
+    w_row, w_col = (torch.from_numpy(
+        (rng.standard_normal((k, n)) * 0.5).astype(np.float32)).to(dev)
+        for n in (c_r, c if full else c - c_r))
+    kw = dict(variant=sh["variant"], stride=sh["stride"])
+    plain = tfuse1d.fuse_stage_plain(x, w_row, w_col, **kw)
+    before = tfuse1d.fuse1d.launches
+    got = tfuse1d.fuse_stage(x, w_row, w_col, **kw)
+    again = tfuse1d.fuse_stage(x, w_row, w_col, **kw)
+    torch.cuda.synchronize()
+    assert tfuse1d.fuse1d.launches == before + 2
+    assert got.shape == plain.shape
+    tol = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (got - plain).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,t,c,k", [(448, 59, 36, 5), (7, 15, 5, 3),
+                                     (3, 4, 8, 4), (2, 9, 3, 1)])
+def test_fuse1d_on_gpu(n, t, c, k):
+    """The 1-D form (the stage kernel's row bank with no halo) against
+    ``fuse1d_plain``, with a bitwise repeat and one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(n, t, c, generator=gen).cuda()
+    w = torch.randn(k, c, generator=gen).cuda()
+    plain = tfuse1d.fuse1d_plain(x, w)
+    before = tfuse1d.fuse1d.launches
+    got, again = tfuse1d.fuse1d(x, w), tfuse1d.fuse1d(x, w)
+    torch.cuda.synchronize()
+    assert tfuse1d.fuse1d.launches == before + 2
+    tol = 1e-4 * max(1.0, plain.abs().max().item())
+    assert (got - plain).abs().max().item() <= tol
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["fuse_half", "fuse_full"])
+def test_fuse_stage_is_one_device_kernel(variant):
+    """``ops.fuse_conv2d_half``/``full`` on CUDA tensors run one device
+    kernel (the stage kernel) and no copy, pad or concat, as the profiler
+    sees it, and count one ``fuse1d`` launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 56, 56, 72, generator=gen).cuda()
+    c_r = 72 if variant == "fuse_full" else 36
+    w_row = torch.randn(5, c_r, generator=gen).cuda()
+    w_col = torch.randn(5, 72 - c_r if c_r == 36 else 72,
+                        generator=gen).cuda()
+    op = (tops.fuse_conv2d_full if variant == "fuse_full"
+          else tops.fuse_conv2d_half)
+    op(x, w_row, w_col, stride=2)
+    torch.cuda.synchronize()
+    before = tfuse1d.fuse1d.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        op(x, w_row, w_col, stride=2)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    assert tfuse1d.fuse1d.launches == before + 1
+    assert sum(e.count for e in rows) == 1, [e.key for e in rows]
+    assert "stage_direct_kernel" in rows[0].key

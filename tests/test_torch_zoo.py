@@ -169,9 +169,15 @@ def test_kernel_launches_lists_the_calls_apply_network_makes(
         "fuseconv_fused", kops.fuseconv_fused, fused_shape))
     monkeypatch.setattr(kops, "depthwise_kxk", record(
         "depthwise_kxk", kops.depthwise_kxk, dw_shape))
+    def stage_shape(x, w_row, w_col, *, variant, stride, **_):
+        b, h, w, c = x.shape
+        return dict(b=b, h=h, w=w, c=c, k=w_row.shape[0], stride=stride,
+                    variant=variant)
+
     monkeypatch.setattr(kf1, "fuse1d", record(
-        "fuse1d", kf1.fuse1d, lambda x, w: dict(
-            n=x.shape[0], t=x.shape[1], c=x.shape[2], k=w.shape[0])))
+        "fuse1d (1-D)", kf1.fuse1d, lambda x, w: dict(x=tuple(x.shape))))
+    monkeypatch.setattr(kf1, "fuse_stage", record(
+        "fuse1d", kf1.fuse_stage, stage_shape))
     monkeypatch.setattr(kmm, "matmul", record(
         "matmul", kmm.matmul, lambda a, b: dict(
             m=a.shape[0], k=a.shape[1], n=b.shape[1])))
