@@ -33,10 +33,25 @@ Phases (any failure exits non-zero, and no result line is printed):
             engine on backend ``cuda``; the logits must match the
             ``torch`` backend and the ``cuda_nofused`` backend on the same
             card and weights, and every kernel's launch counter must have
-            moved while serving.
+            moved while serving (``pipelined=False``: one bucket-8 batch per
+            model, whose launches must equal the main-path sums' weights);
+5. pipeline — the same 16 requests on the same weights through the
+            pipelined engine (``create_engine(..., "pipelined")`` after
+            ``warmup()``), then with cross-model rounds and mid-flight
+            replanning; every request must be ``ok`` within the serve
+            tolerance of phase 4's ``torch`` results, every kernel's counter
+            must move, and the replanning round must poll the CUDA-event
+            readiness probe.  Sync and pipelined rounds are timed in turns
+            (sync, pipelined, pipelined, sync, three times).  Then the
+            launcher ``python -m repro_torch.launch.serve_vision`` serves
+            the two models in a subprocess, 32 requests after one warm
+            burst (every status ``ok``), and once more with two tenants and
+            shedding (no ``error``); its per-request e2e p50/p95 and wall
+            ms are printed.
 
-``--profile`` adds one more served round under ``torch.profiler`` and
-prints device time by kernel and the device's busy share of the round;
+``--profile`` adds one more served round of each engine, sync and
+pipelined, under ``torch.profiler`` and prints device time by kernel and
+the device's busy share of each round;
 it also counts the device kernels of one call at each FuSe stage shape
 (failing unless it is one) and of one ``fuse_half`` forward at bucket 8.
 ``--parent DIR`` also times the kernels of another tree of the repository
@@ -398,8 +413,9 @@ def parent_times(parent: str, shapes, seed: int, profile: bool) -> dict:
         return json.load(f)
 
 
-def profile_round(run) -> None:
-    """Device time by kernel and the device's busy share over one round."""
+def profile_round(run, label: str) -> float:
+    """Device time by kernel and the device's busy share over one round;
+    returns the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -418,12 +434,198 @@ def profile_round(run) -> None:
                   key=lambda e: getattr(e, attr), reverse=True)
     busy_ms = sum(getattr(e, attr) for e in rows) / 1e3
     launches = sum(e.count for e in rows)
-    print(f"profile: round wall {wall_ms:.2f} ms (traced), device busy "
+    print(f"profile: {label} wall {wall_ms:.2f} ms (traced), device busy "
           f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), {launches} device "
           f"kernels and copies")
     for e in rows[:20]:
         print(f"  {getattr(e, attr) / 1e3:9.3f} ms {e.count:5d}x  "
               f"{e.key[:90]}")
+    return busy_ms / wall_ms
+
+
+# the launcher's command in phase 5: the two served models at full width
+LAUNCH_MODELS = ("mobilenet_v3_large/fuse_half",
+                 "mobilenet_v3_large/depthwise")
+LAUNCH_TENANTS = ("--shed", "--tenant", "search:poisson:150:interactive:40",
+                  "--tenant", "ads:bursty:50:batch")
+LAUNCH_REQ = re.compile(r"^req +\d+ \S+ +(\S+) .* e2e= *([\d.]+)ms")
+
+
+def submit_round(engine, keys, images):
+    """Submit ``images`` round-robin over ``keys`` and flush: the results
+    in submission order and the wall seconds from the first submit to the
+    flush's return."""
+    t0 = time.perf_counter()
+    rids = [engine.submit(keys[i % len(keys)], img)
+            for i, img in enumerate(images)]
+    results = {r.rid: r for r in engine.flush()}
+    return [results[rid] for rid in rids], time.perf_counter() - t0
+
+
+def check_served(label, served, reference) -> float:
+    """Fail unless every request is ``ok`` with finite logits of the
+    reference's shape within ``SERVE_RTOL`` of it; returns the worst
+    max|d| / scale."""
+    import numpy as np
+    worst = 0.0
+    for i, (r, ref) in enumerate(zip(served, reference)):
+        if r.status != "ok":
+            raise SystemExit(f"{label}: request {i} status {r.status} "
+                             f"({r.error})")
+        if r.logits.shape != ref.logits.shape \
+                or not np.all(np.isfinite(r.logits)):
+            raise SystemExit(f"{label}: request {i}: bad logits "
+                             f"{r.logits.shape}")
+        scale = max(1.0, float(np.abs(ref.logits).max()))
+        d = float(np.abs(r.logits - ref.logits).max()) / scale
+        if d > SERVE_RTOL:
+            raise SystemExit(f"{label}: request {i}: logits off the "
+                             f"reference by {d:.2e} of the scale")
+        worst = max(worst, d)
+    return worst
+
+
+def run_launcher(extra, json_path, timeout=600):
+    """``python -m repro_torch.launch.serve_vision`` in a subprocess on the
+    phase's models: (statuses, e2e ms, snapshot) of its measured pass;
+    fails unless it exits with 0."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve_vision",
+           "--models", *LAUNCH_MODELS, "--json", json_path, *extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"launcher {' '.join(extra)} exited with "
+                         f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    rows = [m.groups() for m in map(LAUNCH_REQ.match,
+                                    proc.stdout.splitlines()) if m]
+    with open(json_path) as f:
+        snap = json.load(f)
+    print(f"launcher {' '.join(extra)}: exit 0 in {seconds:.1f} s "
+          f"(process start, model init, warmup and traffic)")
+    return [st for st, _ in rows], [float(ms) for _, ms in rows], snap
+
+
+def launcher_line(e2e, snap) -> str:
+    """Per-request e2e p50/p95 (all requests) and the measured pass's wall
+    ms (first submit to last batch, from the snapshot's throughput)."""
+    e2e = sorted(e2e)
+    pick = lambda q: e2e[min(len(e2e) - 1, int(q * len(e2e)))]
+    wall_ms = (snap["completed"] / snap["throughput_ips"] * 1e3
+               if snap["throughput_ips"] else float("nan"))
+    return (f"{snap['completed']} completed, e2e p50 {pick(0.5):.2f} ms "
+            f"p95 {pick(0.95):.2f} ms, wall {wall_ms:.1f} ms, batches "
+            f"{snap['batches']}, host busy {snap['host_busy_s'] * 1e3:.1f} "
+            f"ms, device stage busy {snap['device_busy_s'] * 1e3:.1f} ms, "
+            f"peak in flight {snap['max_in_flight']}")
+
+
+def pipeline_phase(reg, keys, images, reference, serve, serve_s,
+                   launch_extra=()):
+    """Phase 5 on registry ``reg`` (see the module docstring; ``serve_s``
+    is phase 4's sync round): returns {round name: launch counts} and the
+    two pipelined engines (warm, for the profiled round; the caller closes
+    them)."""
+    out, engines = {}, {}
+    try:
+        pipeline_rounds(reg, keys, images, reference, serve, serve_s, out,
+                        engines)
+        launcher_runs(launch_extra)
+    except BaseException:
+        for engine in engines.values():
+            engine.close(drain=False)
+        raise
+    return out, engines
+
+
+def launcher_runs(launch_extra=()):
+    """The launcher as a user starts it: 32 requests after one warm burst
+    (every status ``ok``), then two tenants with shedding (no ``error``)."""
+    json_path = os.path.join(ROOT, "build", "serve_vision.json")
+    os.makedirs(os.path.dirname(json_path), exist_ok=True)
+    statuses, e2e, snap = run_launcher(
+        ["--requests", "32", "--warm-bursts", "1", *launch_extra], json_path)
+    if snap["completed"] != 32 or len(statuses) != 32 \
+            or set(statuses) != {"ok"}:
+        raise SystemExit(f"launcher: completed {snap['completed']}, "
+                         f"statuses {collections.Counter(statuses)}")
+    print(f"launcher 32 requests: {launcher_line(e2e, snap)}")
+    statuses, e2e, snap = run_launcher(
+        [*LAUNCH_TENANTS, "--requests", "32", *launch_extra],
+        os.path.join(ROOT, "build", "serve_vision_tenants.json"))
+    if "error" in statuses or snap["errors"]:
+        raise SystemExit(f"launcher with tenants: statuses "
+                         f"{collections.Counter(statuses)}")
+    print(f"launcher tenants: statuses {dict(collections.Counter(statuses))},"
+          f" shed {snap['shed']}, rejected {snap['rejected']}, class e2e "
+          + ", ".join(f"{c} p50 {st['p50_ms']:.2f} p95 {st['p95_ms']:.2f} ms"
+                      for c, st in sorted(snap["class_e2e"].items())))
+
+
+def pipeline_rounds(reg, keys, images, reference, serve, serve_s, out,
+                    engines):
+    """The checked pipelined rounds of phase 5 and the timed turns; fills
+    ``out`` (round name: launch counts) and ``engines`` (round name: its
+    engine, left open)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.vision import create_engine
+    for name, kw in (("pipelined", {}),
+                     ("rounds+replan", dict(cross_model=True, replan=True))):
+        engine = create_engine(reg, "pipelined", buckets=(1, 2, 4, 8), **kw)
+        engines[name] = engine
+        t0 = time.perf_counter()
+        engine.warmup()
+        warm_s = time.perf_counter() - t0
+        kops.reset_launch_counts()
+        served, wall_s = submit_round(engine, keys, images)
+        counts = kops.launch_counts()
+        snap = engine.snapshot()
+        worst = check_served(f"pipeline {name}", served, reference)
+        missing = [k for k, c in counts.items() if c == 0]
+        if missing:
+            raise SystemExit(f"pipeline {name}: kernels never launched: "
+                             f"{missing}")
+        buckets = collections.Counter(
+            (r.model.split("/")[1], r.bucket, r.batch_fill) for r in served)
+        print(f"pipeline {name}: 16 requests in {wall_s * 1e3:.1f} ms "
+              f"(phase 4 sync: {serve_s * 1e3:.1f} ms; this engine's "
+              f"warmup {warm_s:.1f} s), worst max|d ref| / scale "
+              f"{worst:.2e}, batches {snap['batches']}, (variant, bucket, "
+              f"fill) x requests {dict(sorted(buckets.items()))}, host "
+              f"stage {snap['host_busy_s'] * 1e3:.2f} ms, device stage "
+              f"{snap['device_busy_s'] * 1e3:.2f} ms, overlap "
+              f"{snap['overlap_ratio']:.2f}, peak in flight "
+              f"{snap['max_in_flight']}, launches {counts}")
+        if kw:
+            if snap["probe_polls"] <= 0:
+                raise SystemExit("pipeline rounds+replan: the readiness "
+                                 "probe was never polled")
+            print(f"pipeline {name}: rounds {snap['rounds']}, replans "
+                  f"{snap['replans']}, recovered "
+                  f"{snap['replan_idle_recovered_ms']:.3f} ms, probe polls "
+                  f"{snap['probe_polls']}")
+        out[name] = counts
+    # sync and pipelined in turns on the same registry and images: three
+    # times (sync, pipelined, pipelined, sync)
+    walls = {"sync": [], "pipelined": []}
+    for kind in ("sync", "pipelined", "pipelined", "sync") * 3:
+        if kind == "sync":
+            t0 = time.perf_counter()
+            served, _ = serve(reg)
+            wall_s = time.perf_counter() - t0
+        else:
+            served, wall_s = submit_round(engines["pipelined"], keys, images)
+        check_served(f"pipeline turn {kind}", served, reference)
+        walls[kind].append(wall_s * 1e3)
+    for kind, ms in walls.items():
+        print(f"pipeline turns, {kind}: 16 requests in "
+              + ", ".join(f"{t:.1f}" for t in ms)
+              + f" ms (median {sorted(ms)[len(ms) // 2]:.1f})")
 
 
 def main() -> int:
@@ -709,7 +911,8 @@ def main() -> int:
               for _ in range(16)]
 
     def serve(reg):
-        engine = VisionServeEngine(reg, buckets=(1, 2, 4, 8))
+        engine = VisionServeEngine(reg, buckets=(1, 2, 4, 8),
+                                   pipelined=False)
         rids = [engine.submit(keys[i % 2], img)
                 for i, img in enumerate(images)]
         results = {r.rid: r for r in engine.flush()}
@@ -725,7 +928,9 @@ def main() -> int:
     reference, _ = serve(regs["torch"])
     nofused, _ = serve(regs["cuda_nofused"])
     print(f"serve: 16 requests ({', '.join(keys)}) in {serve_s * 1e3:.1f} ms,"
-          f" batches {snap['batches']}, launches {counts}")
+          f" batches {snap['batches']}, host stage "
+          f"{snap['host_busy_s'] * 1e3:.2f} ms, device stage "
+          f"{snap['device_busy_s'] * 1e3:.2f} ms, launches {counts}")
     worst = 0.0
     for i, (r, ref, nof) in enumerate(zip(served, reference, nofused)):
         if r.status != "ok" or ref.status != "ok" or nof.status != "ok":
@@ -772,8 +977,28 @@ def main() -> int:
         if n != listed:
             raise SystemExit(f"kernel {name}: {n} launches while serving, "
                              f"but the main-path sums weight {listed}")
+
+    # -- 5. pipeline ---------------------------------------------------------
+    pipe_counts, engines = pipeline_phase(regs["cuda"], keys, images,
+                                          reference, serve, serve_s)
+    for name in report:
+        report[name]["pipeline_launches"] = {
+            round_name: counts[name]
+            for round_name, counts in pipe_counts.items()}
+    try:
+        if args.profile:
+            shares = {
+                "sync": profile_round(lambda: serve(regs["cuda"]),
+                                      "sync round"),
+                "pipelined": profile_round(
+                    lambda: submit_round(engines["pipelined"], keys, images),
+                    "pipelined round")}
+            print(f"profile: device busy share, sync {shares['sync']:.1%}, "
+                  f"pipelined {shares['pipelined']:.1%}")
+    finally:
+        for engine in engines.values():
+            engine.close()
     if args.profile:
-        profile_round(lambda: serve(regs["cuda"]))
         # one launch per FuSe stage: no copy, pad or concat kernel around it
         for sh, row in stage_rows:
             n, names = device_kernels(shape_case("fuse1d", sh, randn)["run"])

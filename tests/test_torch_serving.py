@@ -1,12 +1,16 @@
 """The port's serving stack on the CPU, against the JAX package.
 
-* The registry and the synchronous engine (``device="cpu"``) answer mixed
-  requests to ``tiny_net/fuse_half`` and ``tiny_net/depthwise``; each
+* The registry and the synchronous engine (``device="cpu"``,
+  ``pipelined=False``, whose batch composition the counts below pin)
+  answer mixed requests to ``tiny_net/fuse_half`` and
+  ``tiny_net/depthwise``; each
   result equals the JAX reference logits of ``fit_image(img)[None]``
   (rtol=atol=1e-4) and batching does not change results.
 * SLO admission rejects exactly as the cost model predicts.
-* ``ModelRegistry()`` asks for CUDA and raises without a card.
-* The port and ``chip_smoke.py`` import neither ``jax`` nor ``repro``.
+* ``ModelRegistry()`` asks for CUDA and raises without a card; the engine
+  refuses multi-process serving and meshes, which are not ported.
+* The port and ``chip_smoke.py`` import neither ``jax`` nor ``repro``
+  (every module, ``launch/`` included).
 """
 import ast
 import pathlib
@@ -38,7 +42,7 @@ def _engine(backend="cuda", buckets=(1, 2, 4)):
     for v in VARIANTS:
         reg.register(TNET, v, params=params_from_numpy(PARAMS[v], "cpu"))
     return VisionServeEngine(reg, cost_model=SystolicCostModel(),
-                             buckets=buckets)
+                             buckets=buckets, pipelined=False)
 
 
 def _images(n, seed=1):
@@ -113,11 +117,14 @@ def test_admission_rejects_as_the_cost_model_predicts():
 
 
 def test_engine_refuses_unported_modes_and_closes():
-    reg = ModelRegistry(device="cpu")
-    for kw in (dict(pipelined=True), dict(cross_model=True),
-               dict(replan=True), dict(shed=True), dict(multiprocess=object())):
-        with pytest.raises(ValueError):
-            VisionServeEngine(reg, **kw)
+    class MeshRegistry(ModelRegistry):
+        mesh = object()
+
+    with pytest.raises(ValueError, match="multiprocess"):
+        VisionServeEngine(ModelRegistry(device="cpu"),
+                          multiprocess=object())
+    with pytest.raises(ValueError, match="mesh"):
+        VisionServeEngine(MeshRegistry(device="cpu"))
     engine = _engine()
     rid = engine.submit("tiny_net/depthwise", np.zeros((8, 8, 3), np.float32))
     engine.close(drain=False)
@@ -152,6 +159,11 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/serving/vision/interface.py",
+            "src/repro_torch/serving/vision/traffic.py",
+            "src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/serve_vision.py"} <= names
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
