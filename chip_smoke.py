@@ -47,7 +47,21 @@ Phases (any failure exits non-zero, and no result line is printed):
             the two models in a subprocess, 32 requests after one warm
             burst (every status ``ok``), and once more with two tenants and
             shedding (no ``error``); its per-request e2e p50/p95 and wall
-            ms are printed.
+            ms are printed;
+6. zoo    — every paper network (224 px, width 1.0, 1000 classes) in
+            ``fuse_half``, ``fuse_full``, ``depthwise`` and a hybrid
+            per-stage list (20 models) on three registries (``cuda``,
+            ``torch``, ``cuda_nofused``, the same seeded weights), one
+            bucket-8 batch of mixed-size images per model through the sync
+            engine; every request ``ok``, logits within the serve
+            tolerance of ``torch``, and each kernel's counter moved by
+            exactly the sum of ``zoo.kernel_launches`` over the models;
+7. restart — the launcher twice as a subprocess on the 15 (network,
+            variant) models with one fresh kernel cache directory under
+            build/ and a warmup manifest in it: the cold run compiles each
+            kernel source once and writes 60 entries; the warm run
+            replays them, compiles nothing, loads the three libraries and
+            serves identical logits (``logits_sha256``).
 
 ``--profile`` adds one more served round of each engine, sync and
 pipelined, under ``torch.profiler`` and prints device time by kernel and
@@ -67,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import os
 import re
@@ -84,6 +99,7 @@ SERVE_RTOL = 1e-5               # max|served - reference| <= 1e-5 * max(1, max|r
 L2_FLUSH_BYTES = 64 << 20       # larger than the H100's 50 MB L2
 SPIN_CYCLES = 4_000_000         # ~2 ms at the H100's clock: longer than the
                                 # host takes to enqueue any timed call
+ZOO_VARIANTS = ("fuse_half", "fuse_full", "depthwise")
 
 
 def card_line() -> str:
@@ -155,12 +171,18 @@ def make_timer(dev, spin=SPIN_CYCLES):
             fn()
         starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
         ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-        for s, e in zip(starts, ends):
-            flush_buf.zero_()
-            torch.cuda._sleep(spin)
-            s.record()
-            fn()
-            e.record()
+        # a garbage collection that outlasts the spin would be timed as
+        # device time (the start event fires while the host is collecting)
+        gc.disable()
+        try:
+            for s, e in zip(starts, ends):
+                flush_buf.zero_()
+                torch.cuda._sleep(spin)
+                s.record()
+                fn()
+                e.record()
+        finally:
+            gc.enable()
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
@@ -485,16 +507,17 @@ def check_served(label, served, reference) -> float:
     return worst
 
 
-def run_launcher(extra, json_path, timeout=600):
-    """``python -m repro_torch.launch.serve_vision`` in a subprocess on the
-    phase's models: (statuses, e2e ms, snapshot) of its measured pass;
-    fails unless it exits with 0."""
+def run_launcher(extra, json_path, timeout=600, models=None):
+    """``python -m repro_torch.launch.serve_vision`` in a subprocess on
+    ``models`` (default: phase 5's): (statuses, e2e ms, snapshot) of its
+    measured pass; fails unless it exits with 0."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
                                        if env.get("PYTHONPATH") else []))
     cmd = [sys.executable, "-m", "repro_torch.launch.serve_vision",
-           "--models", *LAUNCH_MODELS, "--json", json_path, *extra]
+           "--models", *(models or LAUNCH_MODELS), "--json", json_path,
+           *extra]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=timeout)
@@ -627,6 +650,219 @@ def pipeline_rounds(reg, keys, images, reference, serve, serve_s, out,
               + ", ".join(f"{t:.1f}" for t in ms)
               + f" ms (median {sorted(ms)[len(ms) // 2]:.1f})")
 
+def hybrid(net):
+    """The hybrid per-stage variant list: ``depthwise``, ``fuse_half``,
+    ``fuse_full`` in turn over the network's spatial stages."""
+    cycle = ("depthwise", "fuse_half", "fuse_full")
+    return tuple(cycle[i % 3] for i in range(net.num_spatial_stages))
+
+
+def zoo_models(nets=None):
+    """Phase 6's models as (key, network, variant): every paper network
+    (224 px, width 1.0, 1000 classes unless ``nets`` gives others) in
+    ``fuse_half``, ``fuse_full``, ``depthwise`` and its hybrid."""
+    from repro_torch.serving.vision import default_model_key
+    from repro_torch.vision import zoo
+    nets = nets or [f() for f in zoo.ZOO.values()]
+    return [(default_model_key(net.name, v), net, v)
+            for net in nets for v in ZOO_VARIANTS + (hybrid(net),)]
+
+
+def zoo_phase(seed: int, device="cuda", nets=None) -> dict:
+    """Phase 6: the 20 models of ``zoo_models`` on three registries
+    (``cuda``, ``torch``, ``cuda_nofused``) with the same seeded weights,
+    one bucket-8 batch of mixed-size images per model through the sync
+    engine (``pipelined=False``: a fixed batch composition, so exact
+    launch counts).  Every request ``ok``; ``cuda`` and ``cuda_nofused``
+    logits within ``SERVE_RTOL`` of ``torch``; every kernel's counter
+    moved by exactly the sum of ``zoo.kernel_launches`` over the models.
+    Returns the counts."""
+    import numpy as np
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.vision import ModelRegistry, VisionServeEngine
+    from repro_torch.vision import zoo
+    t_phase = time.perf_counter()
+    models = zoo_models(nets)
+    regs = {bk: ModelRegistry(backend=bk, device=device)
+            for bk in ("cuda", "torch", "cuda_nofused")}
+    for i, (key, net, v) in enumerate(models):
+        m = regs["cuda"].register(net, v, key=key, seed=seed + i)
+        for bk in ("torch", "cuda_nofused"):
+            regs[bk].register(net, v, key=key, params=m.params)
+    img_rng = np.random.default_rng((seed, 6))
+    items = []
+    for _ in range(8):
+        for key, net, _v in models:
+            # 160-288 px at 224, as phase 4's requests
+            lo, hi = (net.resolution * 5) // 7, (net.resolution * 9) // 7
+            items.append((key, img_rng.standard_normal(
+                (int(img_rng.integers(lo, hi + 1)),
+                 int(img_rng.integers(lo, hi + 1)), 3)).astype(np.float32)))
+
+    def serve(reg):
+        engine = VisionServeEngine(reg, buckets=(1, 2, 4, 8),
+                                   pipelined=False)
+        rids = [engine.submit(key, img) for key, img in items]
+        results = {r.rid: r for r in engine.flush()}
+        engine.close()
+        return [results[rid] for rid in rids], engine.snapshot()
+
+    serve(regs["cuda"])              # first run of every model
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    served, snap = serve(regs["cuda"])
+    wall_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    reference, _ = serve(regs["torch"])
+    nofused, _ = serve(regs["cuda_nofused"])
+    worst = check_served("zoo cuda", served, reference)
+    worst_nof = check_served("zoo cuda_nofused", nofused, reference)
+    if snap["batches"] != len(models) or {r.bucket for r in served} != {8}:
+        raise SystemExit(f"zoo: {snap['batches']} batches over buckets "
+                         f"{sorted({r.bucket for r in served})}, not one "
+                         f"bucket-8 batch per model")
+    expected = collections.Counter(
+        name for _, net, v in models
+        for name, _ in zoo.kernel_launches(net, v, 8))
+    print(f"zoo: {len(models)} models, {len(items)} requests in "
+          f"{wall_s * 1e3:.1f} ms through the sync engine, worst max|d "
+          f"torch| / scale {worst:.2e} (cuda_nofused {worst_nof:.2e}, "
+          f"tolerance {SERVE_RTOL}), launches {counts}")
+    for name in sorted(expected):
+        print(f"zoo launches {name}: {counts.get(name, 0)} while serving, "
+              f"{expected[name]} in zoo.kernel_launches over the models")
+    if dict(counts) != dict(expected):
+        raise SystemExit(f"zoo: launch counts {counts} are not the "
+                         f"{dict(expected)} that zoo.kernel_launches lists")
+    run_ms = {}
+    for r in served:
+        run_ms.setdefault(r.model, r.run_ms)
+    for key, ms in run_ms.items():
+        print(f"  zoo batch {key:34s} bucket 8: {ms:8.2f} ms")
+    print(f"zoo: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def restart_phase(models, expect_builds, launch_extra=()) -> None:
+    """Phase 7: the launcher twice as a subprocess on ``models``, one
+    fresh kernel cache directory under build/ and a warmup manifest in it
+    (``--engine sync``; plans kept on the uncalibrated cost model, so both
+    runs form the same batches).  The cold run must compile each kernel
+    source once (``expect_builds`` misses) and write one manifest entry per
+    (model, bucket); the warm run must replay the manifest, compile
+    nothing, load every source from the directory and serve the same
+    logits bit for bit.  Every status ``ok``."""
+    import shutil
+    cache = os.path.join(ROOT, "build", "restart_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    manifest = os.path.join(cache, "warmup_manifest.json")
+    runs = {}
+    for label in ("cold", "warm"):
+        statuses, _, snap = run_launcher(
+            ["--engine", "sync", "--min-calibration-samples", "1000",
+             "--requests", str(2 * len(models)),
+             "--compilation-cache-dir", cache,
+             "--warmup-manifest", manifest, *launch_extra],
+            os.path.join(ROOT, "build", f"restart_{label}.json"),
+            timeout=900, models=models)
+        comp, pc = snap["compilation"], snap["compilation"]["persistent"]
+        print(f"restart {label}: manifest replayed "
+              f"{comp['manifest_replayed']}, {comp['warmup_entries']} "
+              f"entries, warmup_ms {comp['warmup_ms']:.1f}, build cache "
+              f"hits {pc['hits']} misses {pc['misses']} (nvcc "
+              f"{pc['compile_s']:.1f} s), statuses "
+              f"{dict(collections.Counter(statuses))}")
+        if set(statuses) != {"ok"} or len(statuses) != 2 * len(models):
+            raise SystemExit(f"restart {label}: statuses "
+                             f"{collections.Counter(statuses)}")
+        runs[label] = snap
+    cold, warm = runs["cold"]["compilation"], runs["warm"]["compilation"]
+    with open(manifest) as f:
+        entries = json.load(f)["entries"]
+    want = len(models) * 4
+    if cold["manifest_replayed"] or cold["persistent"]["misses"] \
+            != expect_builds or len(entries) != want:
+        raise SystemExit(f"restart cold: replayed "
+                         f"{cold['manifest_replayed']}, misses "
+                         f"{cold['persistent']['misses']} (want "
+                         f"{expect_builds}), {len(entries)} manifest "
+                         f"entries (want {want})")
+    if not warm["manifest_replayed"] or warm["persistent"]["misses"] \
+            or warm["persistent"]["hits"] != expect_builds \
+            or warm["warmup_pcache_misses"]:
+        raise SystemExit(f"restart warm: replayed "
+                         f"{warm['manifest_replayed']}, persistent "
+                         f"{warm['persistent']}, warmup misses "
+                         f"{warm['warmup_pcache_misses']}")
+    if runs["cold"]["logits_sha256"] != runs["warm"]["logits_sha256"]:
+        raise SystemExit("restart: the warm run's logits differ from the "
+                         "cold run's")
+    print(f"restart: warm run replayed {len(entries)} entries with 0 "
+          f"misses and {warm['persistent']['hits']} hits, identical "
+          f"logits_sha256 {runs['warm']['logits_sha256'][:16]}; warmup_ms "
+          f"cold {cold['warmup_ms']:.1f}, warm {warm['warmup_ms']:.1f}")
+
+
+def zoo_report(pair_counts, rows, notes) -> dict:
+    """Phase 3's zoo-wide report: each distinct bucket-8 shape's row, the
+    sums Σ launches x ms, x bound and x library per (network, variant) and
+    per kernel, and the shapes where the library call beats the kernel.
+    Also written to build/chip_smoke_shapes.json.  ``rows`` maps
+    (kernel, shape json) to its measured row."""
+    keys = ("ms", "bound_ms", "library_ms")
+    per_pair, per_kernel = {}, {}
+    for (net_name, v), counts in pair_counts.items():
+        sums = {}
+        for (name, label), n in counts.items():
+            acc = sums.setdefault(name, dict(launches=0, shapes=0,
+                                             **{k: 0.0 for k in keys}))
+            acc["launches"] += n
+            acc["shapes"] += 1
+            for k in keys:
+                acc[k] += n * rows[(name, label)][k]
+        per_pair[f"{net_name}/{v}"] = sums
+        for name, acc in sums.items():
+            tot = per_kernel.setdefault(name, dict(launches=0, **{
+                k: 0.0 for k in keys}))
+            tot["launches"] += acc["launches"]
+            for k in keys:
+                tot[k] += acc[k]
+    print(f"zoo: {len(rows)} distinct kernel shapes at bucket 8 over "
+          f"{len(pair_counts)} (network, variant) pairs")
+    for (name, label), r in rows.items():
+        print(f"  zoo {name} {r['shape']}: {r['ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}), plain {r['plain_ms']:.4f}, err "
+              f"{r['max_abs_err']:.2e}{notes.get((name, label), '')}")
+    for pair, sums in per_pair.items():
+        total = {k: sum(acc[k] for acc in sums.values()) for k in keys}
+        print(f"zoo sums {pair}: launches x ms {total['ms']:.4f}, x bound "
+              f"{total['bound_ms']:.4f}, x library {total['library_ms']:.4f}; "
+              + "; ".join(f"{name} {acc['launches']} launches over "
+                          f"{acc['shapes']} shapes {acc['ms']:.4f} (bound "
+                          f"{acc['bound_ms']:.4f}, library "
+                          f"{acc['library_ms']:.4f})"
+                          for name, acc in sorted(sums.items())))
+    for name, tot in sorted(per_kernel.items()):
+        print(f"zoo sums kernel {name}: {tot['launches']} launches, "
+              f"launches x ms {tot['ms']:.4f}, x bound {tot['bound_ms']:.4f}"
+              f", x library {tot['library_ms']:.4f}")
+    wins = [(name, r) for (name, _), r in rows.items()
+            if r["library_ms"] < r["ms"]]
+    print(f"zoo: the library call beats the kernel at {len(wins)} of "
+          f"{len(rows)} shapes")
+    for name, r in wins:
+        print(f"  library wins {name} {r['shape']}: kernel {r['ms']:.4f} ms,"
+              f" library {r['library_ms']:.4f} ms")
+    out = dict(rows=[dict(r, name=name, key=json.loads(label))
+                     for (name, label), r in rows.items()],
+               per_pair=per_pair, per_kernel=per_kernel)
+    path = os.path.join(ROOT, "build", "chip_smoke_shapes.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -699,6 +935,7 @@ def main() -> int:
                   f"-Xptxas -v report")
 
     # -- 3. kernels ----------------------------------------------------------
+    t_phase = time.perf_counter()
     time_ms = make_timer(dev)
     tiny = torch.zeros(1, device=dev)
     floor_ms = time_ms(lambda: tiny.add_(1))
@@ -733,11 +970,21 @@ def main() -> int:
                "depthwise_kxk": ("fused.cu", "src/repro/kernels/fused.py:285"),
                "fuseconv_fused": ("fused.cu",
                                   "src/repro/kernels/fused.py:212")}
+    # Every distinct kernel shape at bucket 8 of every paper network in
+    # fuse_half, fuse_full and depthwise (224 px, width 1.0), and how often
+    # each (network, variant) launches it.  MobileNetV3-Large fuse_half +
+    # depthwise, the path served since the first port, keeps its own sums.
     net = zoo.mobilenet_v3_large()                # 224 px, width 1.0
     variants = ("fuse_half", "depthwise")
-    shape_counts = collections.Counter(
-        (name, json.dumps(sh, sort_keys=True))
-        for v in variants for name, sh in zoo.kernel_launches(net, v, b))
+    pair_counts = {
+        (net_name, v): collections.Counter(
+            (name, json.dumps(sh, sort_keys=True))
+            for name, sh in zoo.kernel_launches(factory(), v, b))
+        for net_name, factory in zoo.ZOO.items() for v in ZOO_VARIANTS}
+    shape_counts = sum((pair_counts[("mobilenet_v3_large", v)]
+                        for v in variants), collections.Counter())
+    zoo_keys = list(dict.fromkeys(key for counts in pair_counts.values()
+                                  for key in counts))
     path_shapes = [(name, json.loads(sh), n) for (name, sh), n in
                    shape_counts.items()]
     # the parent tree's times: timed rows, the 1-D row, then every
@@ -818,19 +1065,21 @@ def main() -> int:
     print(timed_line("fuse1d (1-D)", report["fuse1d"]["one_d"],
                      case["library_name"]))
     del case
-    # every distinct main-path shape at bucket 8, checked and timed
+    # every distinct shape of the zoo at bucket 8, checked and timed;
     # notes printed beside a row but kept out of the kernels line, whose
     # numbers are all measured (or, for bound_ms, computed from the inputs):
     # the SGEMM's tiling and the stage kernel's grid (one thread per 4-channel
     # output vector, 256 a block; every main-path stage takes VEC = 4)
-    path_rows, stage_rows, notes = [], [], {}
-    for name, sh, n in path_shapes:
+    t_shapes = time.perf_counter()
+    zoo_rows, notes = {}, {}
+    for key in zoo_keys:
+        name, label = key
+        sh = json.loads(label)
         case = shape_case(name, sh, randn)
-        label = json.dumps(sh)
-        row = dict(measure(case, check(name, label, case)), launches=n)
+        row = measure(case, check(name, label, case))
         if name == "matmul":
             til = matmul_tiling(sh["m"], sh["k"], sh["n"])
-            notes[id(row)] = (
+            notes[key] = (
                 f", tile {til['bm']}x{til['bn']} bk {til['bk']} tm "
                 f"{til['tm']} ring {til['stages']} split {til['ks']}, "
                 f"{til['blocks']} blocks")
@@ -839,12 +1088,20 @@ def main() -> int:
             st = sh["stride"]
             outs = (sh["b"] * -(-sh["h"] // st) * -(-sh["w"] // st) * sh["c"]
                     * (2 if sh["variant"] == "fuse_full" else 1))
-            notes[id(row)] = f", {-(-outs // (4 * 256))} blocks"
+            notes[key] = f", {-(-outs // (4 * 256))} blocks"
+        zoo_rows[key] = row
+        del case
+        torch.cuda.empty_cache()
+    shapes_s = time.perf_counter() - t_shapes
+    path_rows, stage_rows = [], []
+    for name, sh, n in path_shapes:
+        key = (name, json.dumps(sh, sort_keys=True))
+        row = dict(zoo_rows[key], launches=n)
+        notes[id(row)] = notes.get(key, "")
+        if is_stage(name, sh):
             stage_rows.append((sh, row))
         report[name]["shapes"].append(row)
         path_rows.append(row)
-        del case
-        torch.cuda.empty_cache()
     if args.parent:
         parent_runs.append(parent_times(args.parent, all_shapes, args.seed,
                                         args.profile))
@@ -892,6 +1149,9 @@ def main() -> int:
                  f"{sums['parent_ms_spin2']:.4f}"
                  if "parent_ms_spin2" in sums else "")
               + f" ({entry['main_path']['launches']} launches)")
+    zoo_report(pair_counts, zoo_rows, notes)
+    print(f"kernels: phase wall {time.perf_counter() - t_phase:.1f} s, of it "
+          f"{shapes_s:.1f} s for the {len(zoo_rows)} distinct zoo shapes")
     torch.cuda.empty_cache()
 
     # -- 4. serve ------------------------------------------------------------
@@ -1015,6 +1275,16 @@ def main() -> int:
                if parent_runs else "")
         print(f"profile: one fuse_half forward at bucket {b}: {n_fwd} device "
               f"kernels and copies{par}")
+
+    # -- 6. zoo --------------------------------------------------------------
+    zoo_counts = zoo_phase(args.seed)
+    for name in report:
+        report[name]["zoo_launches"] = zoo_counts[name]
+    torch.cuda.empty_cache()
+
+    # -- 7. restart ----------------------------------------------------------
+    restart_phase([key for key, _, v in zoo_models() if isinstance(v, str)],
+                  len(_build.SOURCES))
 
     print(card)
     print(json.dumps({"kernels": list(report.values())}))

@@ -2,12 +2,19 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``)
-under ``build/kernels/`` at the repository root.  The file name carries a
-hash of the source and the flags, so an edited source never loads a stale
-library.  Builds happen at first use, never at import: importing the
-kernel modules needs neither ``nvcc`` nor a card.  ``build()`` starts one
-``nvcc`` per missing library, all at once, and keeps each compiler's
-``-Xptxas -v`` report (registers, shared memory, spills).
+under the build directory, ``build/kernels/`` at the repository root
+unless ``set_build_dir`` moved it (the serving stack's compilation cache
+does, ``serving/vision/compilecache.py``).  The file name carries a hash
+of the source and the flags, so an edited source never loads a stale
+library and a directory can be shared by processes and restarts.  Builds
+happen at first use, never at import: importing the kernel modules needs
+neither ``nvcc`` nor a card.  ``build()`` starts one ``nvcc`` per missing
+library, all at once, and keeps each compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills).
+
+``counters()`` counts what ``build()`` found for this process: a library
+already in the directory is a hit, an nvcc run a miss, and the seconds
+the misses' compilers ran.
 
 Every exported C function launches on the stream it is handed and returns
 ``cudaGetLastError()``; ``launch`` raises when that is not 0.
@@ -38,8 +45,11 @@ INT = ctypes.c_int
 # The kernels index with 32-bit ints; every tensor they touch stays below.
 MAX_NUMEL = 1 << 30
 
-_lock = threading.Lock()
+_lock = threading.RLock()      # library() holds it while build() runs
 _libs: Dict[str, ctypes.CDLL] = {}
+_dir = BUILD_DIR
+_counters: Dict[str, float] = {"requests": 0, "hits": 0, "misses": 0,
+                               "compile_s": 0.0}
 
 
 @dataclasses.dataclass
@@ -62,22 +72,64 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def build_dir() -> Path:
+    """Where ``build()`` puts and looks for the libraries."""
+    with _lock:
+        return _dir
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries in ``path`` (created if missing) from
+    now on.  Raises ``RuntimeError`` once this process has loaded a
+    library from another directory: a loaded library stays loaded, so a
+    later move could not take effect for it."""
+    global _dir
+    new = Path(path).expanduser().resolve()
+    with _lock:
+        stale = sorted(n for n, lib in _libs.items()
+                       if Path(lib._name).parent != new)
+        if stale:
+            raise RuntimeError(
+                f"kernel build directory: {stale} already loaded from "
+                f"{_dir}; it cannot move to {new} in this process")
+        new.mkdir(parents=True, exist_ok=True)
+        _dir = new
+    return new
+
+
+def counters() -> Dict[str, float]:
+    """This process's build counters: ``requests`` (libraries asked of
+    ``build()``), ``hits`` (found built), ``misses`` (nvcc runs) and
+    ``compile_s`` (their wall seconds)."""
+    with _lock:
+        return dict(_counters)
+
+
+def _target(name: str, where: Path) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return where / f"{name}-{digest[:16]}.so"
+
+
+def _count(**add) -> None:
+    with _lock:
+        for key, n in add.items():
+            _counters[key] += n
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, BuildInfo]:
     """Compile every library in ``names`` that is not built yet, one nvcc
     per source, all started together.  Raises with the compiler's output
     when any of them fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    where = build_dir()
+    where.mkdir(parents=True, exist_ok=True)
     infos: Dict[str, BuildInfo] = {}
     procs = {}
     for name in names:
-        out = _target(name)
+        out = _target(name, where)
+        _count(requests=1)
         if out.exists():
+            _count(hits=1)
             infos[name] = BuildInfo(name, out, 0.0, "")
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -90,6 +142,7 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, BuildInfo]:
     for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
+        _count(misses=1, compile_s=seconds)
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             continue

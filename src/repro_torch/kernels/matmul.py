@@ -88,9 +88,10 @@ def matmul_tiling(m: int, n: int, k: int, vec: int, sms: int, smem: int
     keeps the block whole (``_threads_ok``), then narrowing bn.  Wide K
     (bk = 32) splits K over ks = 2, 4 or 8 blocks of a cluster where the
     tiles leave SMs idle, the least that gives 1.4 blocks per SM, and the
-    first tiling with a block per SM is taken.  Failing that, the one with
-    most blocks (rows and columns stepping down further for the smallest
-    products).  The ring holds every K step of a block's split plus one
+    first tiling with a block per SM is taken.  Failing that, the largest
+    block among the tilings with a block per SM (rows and columns stepping
+    down further for the smallest products), else the one with most
+    blocks.  The ring holds every K step of a block's split plus one
     (all of a narrow K in flight at once), up to 8 stages and half of
     ``smem``, at least 2.  Raises ``ValueError`` when no tiling fits in
     ``smem``.  The rules and thresholds come from timing the alternatives
@@ -135,9 +136,17 @@ def matmul_tiling(m: int, n: int, k: int, vec: int, sms: int, smem: int
     for c, blocks in preferred:
         if blocks >= goal:
             return c
-    full = [cb for cb in preferred if cb[1] >= sms] or [
-        (c, blocks) for c, blocks, _ in cands]
-    return max(full, key=lambda cb: cb[1])[0]
+    full = [cb for cb in preferred if cb[1] >= sms]
+    if full:
+        return max(full, key=lambda cb: cb[1])[0]
+    # the largest block that still gives every SM one; blocks of a few
+    # threads (a 4 x 4 tile is one) leave most of each warp idle
+    spread = [(c, blocks) for c, blocks, _ in cands if blocks >= sms]
+    if spread:
+        return max(spread, key=lambda cb: (cb[0][0] // cb[0][3])
+                   * (cb[0][1] // 4))[0]
+    return max(((c, blocks) for c, blocks, _ in cands),
+               key=lambda cb: cb[1])[0]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

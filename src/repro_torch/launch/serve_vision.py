@@ -21,10 +21,21 @@ bucket) once before traffic; ``--warm-bursts`` replays the burst before
 the measured pass so the latency calibrator has enough observations for
 SLO admission to operate in calibrated wall-ms.  ``--tenant`` replaces the
 burst with multi-tenant traffic and ``--shed`` lets SLO'd requests shed
-lower-priority queued work.  The flags and the JSON snapshot's keys are
-the reference launcher's; meshes, multi-process serving, the compilation
-cache and the warmup manifest are not ported and their flags exit with a
-message.
+lower-priority queued work.
+
+Warm restarts, as the reference launcher gives them:
+
+  python -m repro_torch.launch.serve_vision --compilation-cache-dir D \
+      --warmup-manifest D/m.json
+
+``--compilation-cache-dir`` (default ``$REPRO_TORCH_KERNEL_CACHE_DIR``;
+unset: ``build/kernels``) is where the CUDA kernel libraries are built
+and found, and ``--warmup-manifest`` persists the warmed (model, bucket)
+set on a cold start and replays it on the next.  A second process on the
+same directory and manifest builds no kernel; the printed ``compile ...``
+line reports the build cache's hits and misses.  The flags and the JSON
+snapshot's keys are the reference launcher's; meshes and multi-process
+serving are not ported and their flags exit with a message.
 """
 from __future__ import annotations
 
@@ -48,10 +59,6 @@ NOT_PORTED = {
                      "ported yet: ROADMAP Queue 1 item 7",
     "process_id": "--process-id (multi-process serving) is not ported "
                   "yet: ROADMAP Queue 1 item 7",
-    "compilation_cache_dir": "--compilation-cache-dir (compile cache) is "
-                             "not ported yet: ROADMAP Queue 1 item 4.3",
-    "warmup_manifest": "--warmup-manifest (warm restart) is not ported "
-                       "yet: ROADMAP Queue 1 item 4.3",
 }
 
 
@@ -132,8 +139,15 @@ def main(argv=None):
                          " of the pipelined executor (alias for"
                          " --engine sync)")
     ap.add_argument("--compilation-cache-dir", default=None,
-                    help="not ported")
-    ap.add_argument("--warmup-manifest", default=None, help="not ported")
+                    help="kernel build cache directory (default:"
+                         " $REPRO_TORCH_KERNEL_CACHE_DIR; unset ="
+                         " build/kernels).  The CUDA kernel libraries are"
+                         " built here once and a restarted process loads"
+                         " them instead of running nvcc")
+    ap.add_argument("--warmup-manifest", default=None,
+                    help="warmup-manifest JSON path: persist the warmed"
+                         " (model, bucket) set on cold start and replay it"
+                         " on restart")
     ap.add_argument("--max-in-flight", type=int, default=2,
                     help="pipelined executor's bound on outstanding batches")
     ap.add_argument("--warm-bursts", type=int, default=0,
@@ -179,7 +193,8 @@ def main(argv=None):
             name, pattern=pattern, rate_rps=float(rate), slo_class=cls,
             slo_ms=float(fields[4]) if len(fields) == 5 else None))
 
-    registry = ModelRegistry(backend=args.backend, device=args.device)
+    registry = ModelRegistry(backend=args.backend, device=args.device,
+                             compilation_cache_dir=args.compilation_cache_dir)
     for entry in args.models:
         name, sep, variant = entry.rpartition("/")
         if not sep or not name:
@@ -201,7 +216,7 @@ def main(argv=None):
         replan=args.replan, probe_interval_ms=args.probe_interval_ms,
         shed=args.shed)
     try:
-        engine.warmup()
+        engine.warmup(manifest_path=args.warmup_manifest)
 
         for i in range(args.warm_bursts):
             submit_mixed_burst(engine, args.requests, seed=args.seed + 1 + i)
@@ -238,8 +253,12 @@ def main(argv=None):
               f"fairness={snap_t['fairness_index']:.3f}")
     snap = engine.snapshot()
     comp = snap.get("compilation", {})
+    pc = comp.get("persistent", {})
     print(f"compile entries_built={comp.get('entries_built', 0)} "
           f"build_ms_total={comp.get('build_ms_total', 0.0):.1f} "
+          f"pcache_hits={pc.get('hits', 0)} "
+          f"pcache_misses={pc.get('misses', 0)} "
+          f"cache_dir={comp.get('cache_dir')} "
           f"warmup_ms={comp.get('warmup_ms', 0.0):.1f}")
     snap["calibration"] = calibrator.snapshot()
     snap["mode"] = engine_name

@@ -15,14 +15,18 @@ Quick start::
 
 Every engine conforms to ``interface.ServingEngine`` (submit / poll /
 stream_results / warmup / snapshot / close).  Port of
-``repro.serving.vision`` on one device: the compilation cache, the warmup
-manifest, meshes and multi-process serving are not ported.
+``repro.serving.vision`` on one device, with the kernel build cache
+(``ModelRegistry(compilation_cache_dir=...)``) and the warmup manifest
+(``engine.warmup(manifest_path=...)``); meshes and multi-process serving
+are not ported.
 """
 from repro_torch.serving.vision.batcher import (DEFAULT_BUCKETS, Batch,
                                                 RequestQueue, VisionRequest,
                                                 fit_image, form_batch,
                                                 form_round)
 from repro_torch.serving.vision.calibrate import LatencyCalibrator, z_score
+from repro_torch.serving.vision.compilecache import (
+    enable_compilation_cache, persistent_cache_counters)
 from repro_torch.serving.vision.costmodel import (BucketPlan, RoundPart,
                                                   RoundPlan,
                                                   SystolicCostModel,
@@ -68,8 +72,9 @@ __all__ = [
     "SystolicCostModel", "TenantSpec", "VisionFuture", "VisionRequest",
     "VisionResult", "VisionServeEngine", "class_priority", "class_weight",
     "create_engine", "default_model_key", "device_groups",
-    "device_groups_sized", "fit_image", "form_batch", "form_round",
-    "jain_fairness", "make_mixed_burst", "make_tenant_trace", "percentile",
+    "device_groups_sized", "enable_compilation_cache", "fit_image",
+    "form_batch", "form_round", "jain_fairness", "make_mixed_burst",
+    "make_tenant_trace", "percentile", "persistent_cache_counters",
     "power_of_two_partitions", "register_engine", "round_groups",
     "slo_class", "stream_items", "stream_mixed_burst", "submit_mixed_burst",
     "submit_trace", "uneven_sizes", "z_score",

@@ -71,14 +71,15 @@ submission, so composition depends on the arrival/execution interleaving
 results are the same in either case — composition only moves batch
 boundaries.
 
-Not ported (the constructor or ``warmup`` refuses them): meshes and device
-groups over several devices, multi-process serving and the warmup
-manifest.
+Not ported (the constructor refuses them): meshes and device groups over
+several devices, and multi-process serving.
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import json
+import os
 import queue
 import threading
 import time
@@ -91,6 +92,8 @@ from repro_torch.serving.vision.batcher import (DEFAULT_BUCKETS, Batch,
                                                 RequestQueue, VisionRequest,
                                                 form_batch, form_round)
 from repro_torch.serving.vision.calibrate import LatencyCalibrator
+from repro_torch.serving.vision.compilecache import (
+    counters_delta, persistent_cache_counters)
 from repro_torch.serving.vision.costmodel import (BucketPlan,
                                                   SystolicCostModel)
 from repro_torch.serving.vision.metrics import ServeMetrics
@@ -940,14 +943,17 @@ class VisionServeEngine:
         registry hooks.  The pipelined engine runs the entries on its
         device thread (started here if traffic has not started it), where
         PyTorch keeps the per-thread library handles that the device
-        stage will use.  Returns the warmed entry list as ``(key, bucket,
-        None)`` triples; warm-up wall-ms lands in the metrics snapshot.
-        ``manifest_path`` (persist/replay the warmed set across restarts)
-        is not ported and raises."""
-        if manifest_path is not None:
-            raise ValueError("VisionServeEngine.warmup: the warmup manifest "
-                             "is not ported yet; the port warms every "
-                             "(model, bucket) on each start")
+        stage will use.
+
+        ``manifest_path``: a warm restart.  When the file exists and its
+        fingerprint matches this registry (backend, device, versions and
+        model set), its entry list is replayed instead of deriving the
+        set; otherwise the set is derived, warmed and written there, so
+        the next process replays it.  With the registry's build cache
+        pointed at a kept directory, a replayed start builds no kernel.
+        Returns the warmed entry list as ``(key, bucket, None)`` triples;
+        warm-up wall-ms and the build cache's hit/miss delta land in the
+        metrics snapshot."""
         if self._closing or self._closed:
             raise RuntimeError("engine is closed")
         t_w0 = time.perf_counter()
@@ -958,12 +964,21 @@ class VisionServeEngine:
             model = self.registry.get(k)
             for b in bks:
                 self.cost_model.predicted_ms(model, b)
-        entries = [(k, b, None) for k in ks for b in bks]
+        entries: Optional[List[tuple]] = None
+        replayed = False
+        if manifest_path:
+            entries = self._load_manifest(manifest_path, ks)
+            replayed = entries is not None
+        if entries is None:
+            entries = [(k, b, None) for k in ks for b in bks]
+        before = persistent_cache_counters()
         warm_entry = getattr(self.registry, "warm_entry", None)
         if warm_entry is not None:
             def warm():
                 hosted = set()
-                for k, b, _ids in entries:
+                for k, b, ids in entries:
+                    if ids is not None:
+                        continue       # a device group: not on one device
                     warm_entry(k, b, devices=None,
                                host=(k, b) not in hosted)
                     hosted.add((k, b))
@@ -975,9 +990,66 @@ class VisionServeEngine:
             # duck-typed stub registries: the coarse per-model hook
             for k in ks:
                 self.registry.prewarm(k, bks, groups=groups or None)
+        delta = counters_delta(before)
+        if manifest_path and not replayed:
+            self._write_manifest(manifest_path, entries)
         self.metrics.on_warmup((time.perf_counter() - t_w0) * 1e3,
-                               len(entries))
+                               len(entries), replayed,
+                               pcache_hits=int(delta["hits"]),
+                               pcache_misses=int(delta["misses"]))
         return entries
+
+    def _manifest_fingerprint(self) -> Optional[str]:
+        """What a warmup manifest is stamped with: the registry's backend
+        fingerprint (None for registries without one, which then neither
+        read nor write a manifest)."""
+        fp_fn = getattr(self.registry, "backend_fingerprint", None)
+        return None if fp_fn is None else fp_fn()
+
+    def _load_manifest(self, path: str,
+                       ks: Sequence[str]) -> Optional[List[tuple]]:
+        """Entries from a warmup manifest, or None when it is missing,
+        unreadable, fingerprint-stale, or names no registered model —
+        every failure mode falls back to deriving the set fresh."""
+        fp = self._manifest_fingerprint()
+        if fp is None or not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                manifest = json.load(f)
+        except (OSError, json.JSONDecodeError, ValueError):
+            return None
+        if not isinstance(manifest, dict) \
+                or manifest.get("fingerprint") != fp:
+            return None
+        known = set(ks)
+        entries = []
+        for e in manifest.get("entries", []):
+            try:
+                k, b, ids = e[0], int(e[1]), e[2]
+            except (TypeError, ValueError, IndexError, KeyError):
+                return None
+            if k in known:
+                entries.append((k, b, tuple(ids) if ids is not None else None))
+        return entries or None
+
+    def _write_manifest(self, path: str, entries: List[tuple]) -> None:
+        """Persist the warmed entry set (atomic rename; fingerprint-stamped
+        so a drifted backend or model set invalidates it)."""
+        fp = self._manifest_fingerprint()
+        if fp is None:
+            return
+        data = {
+            "version": 1,
+            "fingerprint": fp,
+            "created_unix": time.time(),
+            "entries": [[k, b, list(ids) if ids is not None else None]
+                        for k, b, ids in entries],
+        }
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(data, f, indent=2, sort_keys=True)
+        os.replace(tmp, path)
 
     def _on_device_thread(self, fn: Callable[[], None]) -> None:
         """Run ``fn`` on the pipeline's device thread and wait for it;

@@ -149,11 +149,17 @@ class ServeMetrics:
         self.tenant_e2e: Dict[str, LatencyStat] = {}
         self.tenant_completed: Dict[str, int] = {}
         # warmup: cold-start-to-servable is dominated by the first run of
-        # each (model, bucket) on the device (kernel libraries loaded,
-        # cuDNN's algorithm picked, allocator blocks held), so the warmup
-        # pass reports its wall-ms and the entries it ran
+        # each (model, bucket) on the device (kernel libraries built or
+        # loaded, cuDNN's algorithm picked, allocator blocks held), so the
+        # warmup pass reports its wall-ms, the entries it ran, whether a
+        # manifest named them and the kernel build cache's hit/miss delta
+        # it observed (a miss is an nvcc run; a warm restart sees only
+        # hits)
         self.warmup_ms = 0.0
         self.warmup_entries = 0
+        self.warmup_manifest_replayed = False
+        self.warmup_pcache_hits = 0
+        self.warmup_pcache_misses = 0
 
     def reset(self) -> None:
         """Zero every counter/distribution (e.g. after warm-up traffic so a
@@ -212,13 +218,18 @@ class ServeMetrics:
                 self.tenant_completed[tenant] = \
                     self.tenant_completed.get(tenant, 0) + 1
 
-    def on_warmup(self, ms: float, entries: int) -> None:
+    def on_warmup(self, ms: float, entries: int, manifest_replayed: bool,
+                  *, pcache_hits: int = 0, pcache_misses: int = 0) -> None:
         """One warmup pass finished: ``entries`` (model, bucket) entries
-        run once in ``ms`` wall-ms.  Cumulative across passes (warmup may
-        be re-run after registering models)."""
+        run once in ``ms`` wall-ms, observing the given kernel build cache
+        hit/miss delta.  Cumulative across passes (warmup may be re-run
+        after registering models)."""
         with self._lock:
             self.warmup_ms += ms
             self.warmup_entries += entries
+            self.warmup_manifest_replayed = bool(manifest_replayed)
+            self.warmup_pcache_hits += int(pcache_hits)
+            self.warmup_pcache_misses += int(pcache_misses)
 
     def on_shed(self, slo_class: str) -> None:
         """One queued request shed at admission time to make room for a
@@ -365,6 +376,9 @@ class ServeMetrics:
                 "compilation": {
                     "warmup_ms": self.warmup_ms,
                     "warmup_entries": self.warmup_entries,
+                    "manifest_replayed": self.warmup_manifest_replayed,
+                    "warmup_pcache_hits": self.warmup_pcache_hits,
+                    "warmup_pcache_misses": self.warmup_pcache_misses,
                 },
                 "max_in_flight": self.max_in_flight,
                 "host_busy_s": self.host_busy_s,

@@ -6,7 +6,8 @@ one servable entry: the ``NetworkDef``, the spatial-operator variant, the
 initialized (or loaded) params and the lowered operator IR (for the
 systolic cost model).  ``ModelRegistry.apply`` runs the network eagerly
 on the registry's device and backend, whatever the bucket: there is no
-jit, donation, mesh or compile cache.
+jit, donation or mesh; what is compiled is the kernel libraries, once per
+process (see the build cache below).
 
 Asynchrony, as ``jax.device_put`` and jit dispatch give the reference:
 ``apply`` stages the batch through a pinned host buffer, uploads it with
@@ -20,8 +21,11 @@ registry the handle is ready at once.
 
 Accounting: the first call of each (model, bucket) is timed into a
 compile log (the wall ms of the call: kernel libraries loaded or built,
-cuDNN's algorithm search for the stem, first allocations); an entry that
-has run once is "compiled" for the replanner's warm-only backfill.
+cuDNN's algorithm search for the stem, first allocations), with the
+kernel build cache's hit/miss delta seen during it; an entry that has run
+once is "compiled" for the replanner's warm-only backfill.  The build
+cache (``compilecache.py``) is pointed at ``compilation_cache_dir`` at
+construction, before any kernel library loads.
 
 Numerics are fixed at construction: fp32 convolutions and matmuls with
 TF32 off (``torch.backends.cudnn.allow_tf32`` defaults to True, and TF32
@@ -41,6 +45,8 @@ import torch
 
 from repro_torch.core.layerir import OpSpec
 from repro_torch.kernels import backend as kb
+from repro_torch.serving.vision.compilecache import (
+    counters_delta, enable_compilation_cache, persistent_cache_counters)
 from repro_torch.vision import zoo
 
 
@@ -126,12 +132,15 @@ class BatchLogits:
 
 class ModelRegistry:
     """Servable models on one device.  ``device`` defaults to ``cuda``;
-    asking for CUDA without a card raises (there is no CPU fallback)."""
+    asking for CUDA without a card raises (there is no CPU fallback).
+    ``compilation_cache_dir`` (else ``$REPRO_TORCH_KERNEL_CACHE_DIR``) is
+    where the kernel libraries are built and found."""
 
     devices = None          # no mesh: the engine schedules one device
 
     def __init__(self, backend: Union[str, kb.Backend, None] = "cuda",
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda",
+                 compilation_cache_dir: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -140,6 +149,8 @@ class ModelRegistry:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.backend = kb.resolve_backend(backend)
+        self.compilation_cache_dir = enable_compilation_cache(
+            compilation_cache_dir)
         self._models: Dict[str, RegisteredModel] = {}
         # per-entry compile log: one record per (model, bucket) first run
         # by THIS registry, with the call's wall ms.  Written under a
@@ -197,6 +208,7 @@ class ModelRegistry:
         with self._compile_lock:
             fresh = cache_key not in self._called
             self._called.add(cache_key)
+        before = persistent_cache_counters() if fresh else None
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             with torch.cuda.device(self.device):
@@ -204,10 +216,14 @@ class ModelRegistry:
         else:
             out = self._dispatch(model, x_np)
         if fresh:
+            build_ms = (time.perf_counter() - t0) * 1e3
+            delta = counters_delta(before)
             with self._compile_lock:
                 self._compile_log.append({
                     "key": key, "bucket": cache_key[1], "devices": None,
-                    "build_ms": (time.perf_counter() - t0) * 1e3})
+                    "build_ms": build_ms,
+                    "pcache_hits": int(delta["hits"]),
+                    "pcache_misses": int(delta["misses"])})
         return out
 
     def _dispatch(self, model: RegisteredModel,
@@ -292,11 +308,16 @@ class ModelRegistry:
         return hashlib.sha256(blob).hexdigest()[:16]
 
     def compile_stats(self) -> Dict:
-        """First-run accounting: entries run, their first calls' wall ms
-        and the log of each."""
+        """First-run accounting: the build cache's directory, entries run,
+        their first calls' wall ms, the process-wide build counters and the
+        log of each entry.  The cold/warm restart gate diffs
+        ``persistent["misses"]`` across two processes sharing a
+        directory."""
         with self._compile_lock:
             log = [dict(e) for e in self._compile_log]
         return {
+            "cache_dir": self.compilation_cache_dir,
+            "persistent": persistent_cache_counters(),
             "entries_built": len(log),
             "build_ms_total": sum(e["build_ms"] for e in log),
             "compile_log": log,

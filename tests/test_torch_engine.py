@@ -13,7 +13,8 @@
   ``test_serve_async.py::test_replan_falls_through_to_the_next_idle_group``
   needs a registry over three devices, which the port refuses (meshes are
   not ported); ``test_engine_refuses_meshes_multiprocess_and_manifest``
-  pins that refusal instead.
+  pins that refusal instead, and that the warmup manifest, ported since,
+  is taken.
 * **Real models.**  ``tiny_net(resolution=16, width=8)`` in ``depthwise``,
   ``fuse_half`` and ``fuse_full`` on one parameter tree
   (``_torch_params.numpy_params``): the port's pipelined engine
@@ -700,7 +701,11 @@ def test_scenario_pins():
 # What stays refused, and the registry hooks.
 # ---------------------------------------------------------------------------
 
-def test_engine_refuses_meshes_multiprocess_and_manifest():
+def test_engine_refuses_meshes_multiprocess_and_manifest(tmp_path):
+    """Meshes and multi-process serving are refused; the warmup manifest
+    is ported: a registry without a fingerprint (a stub) warms the derived
+    set and neither reads nor writes a manifest, as the reference's
+    engine does."""
     class ThreeDeviceRegistry(StubRegistry):
         devices = (0, 1, 2)
 
@@ -713,8 +718,11 @@ def test_engine_refuses_meshes_multiprocess_and_manifest():
     engine = tsv.VisionServeEngine(StubRegistry(), cost_model=StubCostModel())
     try:
         assert engine.pipelined is True          # the reference's default
-        with pytest.raises(ValueError, match="manifest"):
-            engine.warmup(manifest_path="m.json")
+        manifest = tmp_path / "m.json"
+        assert engine.warmup(manifest_path=str(manifest)) == [
+            ("m", b, None) for b in engine.buckets]
+        assert not manifest.exists()
+        assert engine.snapshot()["compilation"]["manifest_replayed"] is False
     finally:
         engine.close()
 
@@ -738,7 +746,10 @@ def test_registry_hooks_on_cpu():
     comp = engine.snapshot()["compilation"]
     assert comp["entries_built"] == 2 and comp["warmup_entries"] == 2
     assert [e["bucket"] for e in comp["compile_log"]] == [1, 2]
-    assert "persistent" not in comp and "cache_dir" not in comp
+    assert comp["cache_dir"] is None and comp["manifest_replayed"] is False
+    assert set(comp["persistent"]) == {"requests", "hits", "misses",
+                                       "compile_s"}
+    assert all(e["pcache_misses"] == 0 for e in comp["compile_log"])
     assert reg.backend_fingerprint() == fp
     reg.register(net, "depthwise")
     assert reg.backend_fingerprint() != fp

@@ -5,6 +5,10 @@ Tolerance: the reference's own ``rtol=atol=1e-4``
 (tests/test_backend_conformance.py).  The grid is the conformance
 harness's ``FAST_GRID`` plus stride-2 cases on even extents, where XLA's
 SAME split (low side ``pad_total // 2``) differs from symmetric padding.
+The harness's ``SLOW_GRID`` (48 cases, marked ``slow`` as the reference
+marks it) holds the port's FuSe 2-D ops, plain and through the kernel
+wrappers' CPU dispatch, to the JAX package's ops (the Pallas wrappers in
+interpret mode) and to its lax reference.
 """
 import jax
 import numpy as np
@@ -12,7 +16,9 @@ import pytest
 import torch
 
 from repro.core import fuseconv as jfc
+from repro.kernels import ops as jops
 from repro_torch.core import fuseconv as tfc
+from repro_torch.kernels import ops as tops
 
 RTOL = ATOL = 1e-4
 
@@ -23,6 +29,14 @@ FAST_GRID = [
     (16, 10, 4, 3, 2),
 ]
 EVEN_STRIDE2 = [(16, 10, 4, 3, 2), (8, 8, 3, 5, 2), (12, 6, 5, 3, 2)]
+SLOW_GRID = [
+    # tests/test_backend_conformance.py SLOW_GRID
+    (h, w, c, k, s)
+    for (h, w) in [(7, 7), (8, 8), (11, 13), (16, 16), (20, 12), (5, 17)]
+    for c in (3, 8)
+    for k in (3, 5)
+    for s in (1, 2)
+]
 
 
 def _x(shape, seed=0):
@@ -55,6 +69,29 @@ def test_fuse_banks_match_jax(h, w, c, k, stride):
                                 _t(w_col[:, c_r:]), stride=stride),
            jfc.fuse_conv2d_half(x, w_row[:, :c_r], w_col[:, c_r:],
                                 stride=stride))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("h,w,c,k,stride", SLOW_GRID)
+def test_fuse_ops_match_jax_grid(h, w, c, k, stride):
+    """``fuse_conv2d_full`` and ``fuse_conv2d_half`` (the split of the
+    reference's grid: ``c // 2`` row channels), plain and through the
+    kernel wrappers, against ``repro.kernels.ops`` and
+    ``repro.core.fuseconv`` on the same inputs."""
+    x = _x((2, h, w, c))
+    w_row = _x((k, c), seed=1) * 0.5
+    w_col = _x((k, c), seed=2) * 0.5
+    c_r = c // 2
+    for name, args in (("fuse_conv2d_full", (w_row, w_col)),
+                       ("fuse_conv2d_half", (w_row[:, :c_r],
+                                             w_col[:, c_r:]))):
+        targs = [_t(a) for a in (x,) + args]
+        refs = (getattr(jops, name)(x, *args, stride=stride, interpret=True),
+                getattr(jfc, name)(x, *args, stride=stride))
+        for got in (getattr(tfc, name)(*targs, stride=stride),
+                    getattr(tops, name)(*targs, stride=stride)):
+            for ref in refs:
+                _close(got, ref)
 
 
 @pytest.mark.parametrize("h,w,c,k,stride", FAST_GRID + EVEN_STRIDE2)

@@ -11,9 +11,11 @@ tail blocks and multi-tile paths.  Tolerance: the reference's own
 ``test_kernels_match_plain_on_gpu`` (marker ``gpu``) compares each CUDA
 kernel with its plain version on the card; ``test_fused_kernels_on_gpu``
 and ``test_matmul_on_gpu`` hold ``depthwise_kxk``, ``fuseconv_fused`` and
-``matmul`` to their plain versions at every MobileNetV3-Large main-path
-shape (buckets 8 and 1) and at every edge of their tilings, with a bitwise
-repeat and one launch per call.  They skip where there is no card.
+``matmul`` (and ``test_fuse_stage_on_gpu`` the FuSe stage) to their plain
+versions at every kernel shape that the paper networks launch in
+``fuse_half``, ``fuse_full`` and ``depthwise`` (buckets 8 and 1) and at
+every edge of their tilings, with a bitwise repeat and one launch per
+call.  They skip where there is no card.
 ``test_matmul_tiling_fits_the_card`` checks the SGEMM's tile picker on the
 CPU.
 """
@@ -373,15 +375,18 @@ def test_kernels_match_plain_on_gpu():
 def _main_path_cases(names=("fuseconv_fused", "depthwise_kxk"),
                      batches=(8, 1)):
     """Distinct (kernel, shape) of the launches of the kernels ``names``
-    that MobileNetV3-Large (224 px, width 1.0) makes at ``batches``."""
-    net = tzoo.mobilenet_v3_large()
+    that every paper network (224 px, width 1.0) makes at ``batches`` in
+    ``fuse_half``, ``fuse_full`` and ``depthwise``."""
     seen = {}
     for batch in batches:
-        for variant in ("fuse_half", "depthwise"):
-            for name, shape in tzoo.kernel_launches(net, variant, batch):
-                if name in names:
-                    seen.setdefault((name, tuple(shape.items())),
-                                    (name, shape))
+        for factory in tzoo.ZOO.values():
+            net = factory()
+            for variant in ("fuse_half", "fuse_full", "depthwise"):
+                for name, shape in tzoo.kernel_launches(net, variant,
+                                                        batch):
+                    if name in names:
+                        seen.setdefault((name, tuple(shape.items())),
+                                        (name, shape))
     return list(seen.values())
 
 
@@ -495,8 +500,9 @@ def test_matmul_tiling_fits_the_card(batch, vec):
     """At every main-path matmul shape the picked tiling is one
     ``repro_matmul_f32`` accepts, fits the H100's shared-memory opt-in,
     leaves at most an eighth of the tile columns idle where N % 8 == 0,
-    and launches at least one block per SM (counting the K split) wherever
-    16 x 16 tiles would."""
+    launches at least one block per SM (counting the K split) wherever
+    16 x 16 tiles would, and at bucket 8 gives each block half a warp or
+    more."""
     for _, sh in _main_path_cases(("matmul",), (batch,)):
         m, k, n = sh["m"], sh["k"], sh["n"]
         bm, bn, bk, tm, stages, ks = tmatmul.matmul_tiling(
@@ -512,6 +518,10 @@ def test_matmul_tiling_fits_the_card(batch, vec):
         blocks = -(-m // bm) * -(-n // bn) * ks
         if -(-m // 16) * -(-n // 16) >= H100_SMS:
             assert blocks >= H100_SMS, (sh, (bm, bn, ks), blocks)
+        if batch == 8:
+            # the fallback once took 4 x 4 tiles, blocks of one thread, at
+            # MobileNetV3-Small's (6272, 88) @ (88, 24): 9x the library
+            assert (bm // tm) * (bn // 4) >= 16, (sh, (bm, bn, tm))
 
 
 def test_matmul_tiling_refuses_what_does_not_fit():

@@ -6,8 +6,8 @@
   keeps every plan on the uncalibrated systolic cost model so that neither
   framework's wall times can move it.  Per request: the same status,
   bucket and predicted ms; the snapshots have the same keys, less the
-  compile-cache and multi-process keys, whose meaning does not carry over
-  (``NOT_CARRIED``).  Logits are not compared: each launcher draws its own
+  jit-entry count and the multi-process keys, whose meaning does not
+  carry over (``NOT_CARRIED``).  Logits are not compared: each launcher draws its own
   seeded weights (weight-carried logit parity is in test_torch_engine.py).
 * ``--tenant`` and ``--shed`` run on the pipelined engine.
 * Each flag of what is not ported exits with a one-line message naming
@@ -31,14 +31,9 @@ from repro_torch.vision import zoo as tzoo
 COMMON = ["--models", "tiny_net/depthwise", "tiny_net/fuse_full",
           "--requests", "8", "--resolution", "16", "--buckets", "1", "2",
           "4", "--engine", "sync", "--min-calibration-samples", "1000"]
-# snapshot keys of the reference with no meaning in the port: the
-# persistent compilation cache, jit entries and multi-process counters
-NOT_CARRIED = {"multiprocess",
-               "compilation.cache_dir", "compilation.persistent",
-               "compilation.jit_entries", "compilation.manifest_replayed",
-               "compilation.warmup_pcache_hits",
-               "compilation.warmup_pcache_misses",
-               "compile_log.pcache_hits", "compile_log.pcache_misses"}
+# snapshot keys of the reference with no meaning in the port: jit entries
+# and multi-process counters
+NOT_CARRIED = {"multiprocess", "compilation.jit_entries"}
 REQ = re.compile(r"^req +(\d+) (\S+) +(\S+) +top1= *-?\d+ bucket=(\d+) "
                  r"predicted= *([\d.]+)(acc-ms|cal-ms)")
 
@@ -95,8 +90,6 @@ def test_tenants_and_shedding_run(tmp_path, capsys):
     ("--coordinator", "localhost:1234", "7"),
     ("--num-processes", "2", "7"),
     ("--process-id", "1", "7"),
-    ("--compilation-cache-dir", "cache", "4.3"),
-    ("--warmup-manifest", "manifest.json", "4.3"),
 ])
 def test_unported_flags_exit_with_their_roadmap_item(flag, value, item):
     with pytest.raises(SystemExit) as exc:
