@@ -61,7 +61,23 @@ Phases (any failure exits non-zero, and no result line is printed):
             build/ and a warmup manifest in it: the cold run compiles each
             kernel source once and writes 60 entries; the warm run
             replays them, compiles nothing, loads the three libraries and
-            serves identical logits (``logits_sha256``).
+            serves identical logits (``logits_sha256``);
+8. train  — the training path (``repro_torch.train.vision``, eager
+            autograd through plain ops, as the reference trains on XLA):
+            a MobileNetV3-Large teacher (224 px, width 1.0, 1000 classes)
+            trained 4 steps at batch 32 in ``depthwise`` from the port's
+            seeded init, then 4 NOS steps from it with the all-FuSe-Half
+            collapse, BN recalibration and eval; losses and trained trees
+            finite; the median step ms of teacher and NOS steps and each
+            run's peak device memory; then the NOS student collapsed to a
+            hybrid (``search.greedy_latency_mask(net, 0.5)`` stages
+            FuSe-Half, the rest depthwise) and the all-FuSe-Half collapse
+            served as phase 6 serves (within the serve tolerance of
+            ``torch``, exact launch counts, all four kernels launched);
+            last, ``examples/nos_distillation_torch.py``'s teacher,
+            in-place and NOS runs at its scale (250 steps each), whose
+            losses must fall; the three accuracies and
+            ``recovered_fraction`` are printed.
 
 ``--profile`` adds one more served round of each engine, sync and
 pipelined, under ``torch.profiler`` and prints device time by kernel and
@@ -83,6 +99,7 @@ import argparse
 import collections
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -669,30 +686,41 @@ def zoo_models(nets=None):
 
 
 def zoo_phase(seed: int, device="cuda", nets=None) -> dict:
-    """Phase 6: the 20 models of ``zoo_models`` on three registries
-    (``cuda``, ``torch``, ``cuda_nofused``) with the same seeded weights,
-    one bucket-8 batch of mixed-size images per model through the sync
-    engine (``pipelined=False``: a fixed batch composition, so exact
-    launch counts).  Every request ``ok``; ``cuda`` and ``cuda_nofused``
-    logits within ``SERVE_RTOL`` of ``torch``; every kernel's counter
-    moved by exactly the sum of ``zoo.kernel_launches`` over the models.
-    Returns the counts."""
+    """Phase 6: the 20 models of ``zoo_models`` with seeded weights,
+    served by ``serve_checked``.  Returns the launch counts."""
+    t_phase = time.perf_counter()
+    counts = serve_checked("zoo", [(key, net, v, None) for key, net, v
+                                   in zoo_models(nets)], seed, device)
+    print(f"zoo: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def serve_checked(label: str, models, seed: int, device="cuda") -> dict:
+    """``models`` as (key, network, variant, params) on three registries
+    (``cuda``, ``torch``, ``cuda_nofused``) with the same weights (params
+    ``None``: the port's init from ``seed`` + the model's index), one
+    bucket-8 batch of mixed-size images per model through the sync engine
+    (``pipelined=False``: a fixed batch composition, so exact launch
+    counts).  Every request ``ok``; ``cuda`` and ``cuda_nofused`` logits
+    within ``SERVE_RTOL`` of ``torch``; every kernel's counter, zeroed just
+    before the measured ``cuda`` round and read just after, moved by
+    exactly the sum of ``zoo.kernel_launches`` over the models.  Returns
+    the counts."""
     import numpy as np
     from repro_torch.kernels import ops as kops
     from repro_torch.serving.vision import ModelRegistry, VisionServeEngine
     from repro_torch.vision import zoo
-    t_phase = time.perf_counter()
-    models = zoo_models(nets)
     regs = {bk: ModelRegistry(backend=bk, device=device)
             for bk in ("cuda", "torch", "cuda_nofused")}
-    for i, (key, net, v) in enumerate(models):
-        m = regs["cuda"].register(net, v, key=key, seed=seed + i)
+    for i, (key, net, v, params) in enumerate(models):
+        m = regs["cuda"].register(net, v, key=key, params=params,
+                                  seed=seed + i)
         for bk in ("torch", "cuda_nofused"):
             regs[bk].register(net, v, key=key, params=m.params)
     img_rng = np.random.default_rng((seed, 6))
     items = []
     for _ in range(8):
-        for key, net, _v in models:
+        for key, net, _v, _p in models:
             # 160-288 px at 224, as phase 4's requests
             lo, hi = (net.resolution * 5) // 7, (net.resolution * 9) // 7
             items.append((key, img_rng.standard_normal(
@@ -715,31 +743,186 @@ def zoo_phase(seed: int, device="cuda", nets=None) -> dict:
     counts = kops.launch_counts()
     reference, _ = serve(regs["torch"])
     nofused, _ = serve(regs["cuda_nofused"])
-    worst = check_served("zoo cuda", served, reference)
-    worst_nof = check_served("zoo cuda_nofused", nofused, reference)
+    worst = check_served(f"{label} cuda", served, reference)
+    worst_nof = check_served(f"{label} cuda_nofused", nofused, reference)
     if snap["batches"] != len(models) or {r.bucket for r in served} != {8}:
-        raise SystemExit(f"zoo: {snap['batches']} batches over buckets "
+        raise SystemExit(f"{label}: {snap['batches']} batches over buckets "
                          f"{sorted({r.bucket for r in served})}, not one "
                          f"bucket-8 batch per model")
     expected = collections.Counter(
-        name for _, net, v in models
+        name for _, net, v, _p in models
         for name, _ in zoo.kernel_launches(net, v, 8))
-    print(f"zoo: {len(models)} models, {len(items)} requests in "
+    print(f"{label}: {len(models)} models, {len(items)} requests in "
           f"{wall_s * 1e3:.1f} ms through the sync engine, worst max|d "
           f"torch| / scale {worst:.2e} (cuda_nofused {worst_nof:.2e}, "
           f"tolerance {SERVE_RTOL}), launches {counts}")
     for name in sorted(expected):
-        print(f"zoo launches {name}: {counts.get(name, 0)} while serving, "
-              f"{expected[name]} in zoo.kernel_launches over the models")
+        print(f"{label} launches {name}: {counts.get(name, 0)} while "
+              f"serving, {expected[name]} in zoo.kernel_launches over the "
+              f"models")
     if dict(counts) != dict(expected):
-        raise SystemExit(f"zoo: launch counts {counts} are not the "
+        raise SystemExit(f"{label}: launch counts {counts} are not the "
                          f"{dict(expected)} that zoo.kernel_launches lists")
     run_ms = {}
     for r in served:
         run_ms.setdefault(r.model, r.run_ms)
     for key, ms in run_ms.items():
-        print(f"  zoo batch {key:34s} bucket 8: {ms:8.2f} ms")
-    print(f"zoo: phase wall {time.perf_counter() - t_phase:.1f} s")
+        print(f"  {label} batch {key:34s} bucket 8: {ms:8.2f} ms")
+    return counts
+
+
+def train_phase(seed: int, device="cuda", net=None, data_cfg=None,
+                example_steps: int = 250) -> dict:
+    """Phase 8: NOS training of ``net`` (default MobileNetV3-Large, 224 px,
+    width 1.0, 1000 classes) and serving what it trained.
+
+    A depthwise teacher (``train_vision``, 4 steps at batch 32 from the
+    port's seeded init), then ``train_nos`` from it (4 steps, its
+    all-FuSe-Half collapse, ``recalibrate_bn`` over 25 batches and
+    ``evaluate``); every logged loss and every leaf of the trained trees
+    finite; the median ms of 3 more teacher and NOS steps (each between
+    synchronizes) and each run's peak device memory.  Then the student
+    collapsed to the hybrid (stages in ``search.greedy_latency_mask(net,
+    0.5)`` FuSe-Half, the rest depthwise; BN recalibrated) and the
+    all-FuSe-Half collapse, served by ``serve_checked``, which must move
+    all four kernel counters.  Last, ``examples/nos_distillation_torch.py``'s
+    three runs at its scale (``tiny_net(8, 28, 12)``, noise 0.5,
+    ``example_steps`` steps, batch 48): losses finite and the last 10
+    steps' mean below the first 10's in each run.  Returns the launch
+    counts of the served round."""
+    import statistics
+
+    import torch
+    from repro_torch.core import nos, search
+    from repro_torch.data.vision_synth import (SynthVisionConfig,
+                                               synth_image_batch)
+    from repro_torch.optim import sgd_momentum
+    from repro_torch.train import vision as tv
+    from repro_torch.tree import tree_leaves
+    from repro_torch.vision import zoo
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    from nos_distillation_torch import nos_experiment
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    net = net or zoo.mobilenet_v3_large()
+    dcfg = data_cfg or SynthVisionConfig(resolution=224, num_classes=1000)
+    cfg = tv.VisionTrainConfig(steps=4, batch=32, eval_batches=1, seed=seed)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check_finite(label, losses, *trees):
+        bad = [i for i, x in enumerate(losses) if not math.isfinite(x)]
+        if bad or not losses:
+            raise SystemExit(f"train {label}: losses {losses} (steps {bad} "
+                             f"not finite)")
+        for tree in trees:
+            for leaf in tree_leaves(tree):
+                if not bool(torch.isfinite(leaf).all()):
+                    raise SystemExit(f"train {label}: a trained leaf of "
+                                     f"shape {tuple(leaf.shape)} is not "
+                                     f"finite")
+
+    def run(label, fn):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        print(f"train {label}: {time.perf_counter() - t0:.1f} s, "
+              f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+        return out, peak
+
+    def step_ms(step, state):
+        times = []
+        for s in range(3):
+            batch = synth_image_batch(100 + s, cfg.batch, dcfg, device=device)
+            sync()
+            t0 = time.perf_counter()
+            state = step(state, s, batch)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), times
+
+    # -- teacher and NOS ------------------------------------------------------
+    teacher, teacher_peak = run(
+        f"teacher ({net.name} depthwise, {dcfg.resolution} px, "
+        f"{dcfg.num_classes} classes, {cfg.steps} steps at batch "
+        f"{cfg.batch})",
+        lambda: tv.train_vision(net, "depthwise", cfg, dcfg, device=device))
+    check_finite("teacher", teacher["losses"], teacher["params"])
+    student, nos_peak = run(
+        f"NOS ({cfg.steps} steps, all-FuSe-Half collapse, recalibrate_bn "
+        f"over 25 batches, evaluate)",
+        lambda: tv.train_nos(net, teacher["params"], cfg, dcfg,
+                             device=device))
+    check_finite("NOS", student["losses"], student["scaffold_params"],
+                 student["collapsed_params"])
+    print(f"train losses: teacher {teacher['losses']}, NOS "
+          f"{student['losses']}; eval acc teacher {teacher['eval_acc']}, "
+          f"NOS all-FuSe-Half collapse {student['eval_acc']}")
+
+    opt = sgd_momentum(cfg.lr, cfg.momentum, cfg.weight_decay)
+    n_stages = net.num_spatial_stages
+    t_ms, t_all = step_ms(
+        lambda st, s, b: tv.train_step(*st, s, b, net=net,
+                                       variant="depthwise", opt=opt)[:2],
+        (teacher["params"], opt.init(teacher["params"])))
+    n_ms, n_all = step_ms(
+        lambda st, s, b: tv.nos_step(
+            *st, s, b, tv.nos_choices(cfg, s, n_stages, 0.5).to(device),
+            net=net, teacher_params=teacher["params"],
+            nos_cfg=nos.NOSConfig(), opt=opt)[:2],
+        (student["scaffold_params"], opt.init(student["scaffold_params"])))
+    print(f"train step ms (median of 3, synchronized): teacher {t_ms:.1f} "
+          f"({', '.join(f'{t:.1f}' for t in t_all)}), NOS {n_ms:.1f} "
+          f"({', '.join(f'{t:.1f}' for t in n_all)}); max_memory_allocated "
+          f"teacher {teacher_peak} B, NOS {nos_peak} B")
+    if cuda:
+        print(card_line())
+
+    # -- serve the hybrid -------------------------------------------------------
+    mask = search.greedy_latency_mask(net, 0.5)
+    hybrid, hybrid_variants = nos.collapse(
+        student["scaffold_params"], net, keep_depthwise=[not m for m in mask])
+    hybrid = tv.recalibrate_bn(hybrid, net, hybrid_variants, cfg, dcfg,
+                               device=device)
+    print(f"train hybrid: greedy_latency_mask(net, 0.5) keeps "
+          f"{hybrid_variants.count('depthwise')} of {n_stages} stages "
+          f"depthwise: {''.join('F' if m else 'd' for m in mask)}")
+    models = [(f"{net.name}/nos_fuse_half", net, tuple(student["variants"]),
+               student["collapsed_params"]),
+              (f"{net.name}/nos_hybrid", net, tuple(hybrid_variants), hybrid)]
+    counts = serve_checked("train serve", models, seed, device)
+    if not all(counts.get(name) for name in
+               ("fuseconv_fused", "depthwise_kxk", "fuse1d", "matmul")):
+        raise SystemExit(f"train serve: a kernel never launched: {counts}")
+
+    # -- the mechanism at the example's scale ---------------------------------
+    t0 = time.perf_counter()
+    exp = nos_experiment(
+        zoo.tiny_net(num_classes=8, resolution=28, width=12),
+        SynthVisionConfig(resolution=28, num_classes=8, noise=0.5),
+        tv.VisionTrainConfig(steps=example_steps, batch=48, eval_batches=6,
+                             seed=seed), device=device)
+    for label in ("teacher", "inplace", "nos"):
+        r = exp[label]
+        params = r["params"] if label != "nos" else r["collapsed_params"]
+        check_finite(f"example {label}", r["losses"], params)
+        first = sum(r["losses"][:10]) / 10
+        last = sum(r["losses"][-10:]) / 10
+        print(f"train example {label}: loss mean of the first 10 steps "
+              f"{first:.4f}, of the last 10 {last:.4f}, eval acc "
+              f"{r['eval_acc']}")
+        if not last < first:
+            raise SystemExit(f"train example {label}: the loss did not "
+                             f"fall ({first:.4f} -> {last:.4f})")
+    print(f"train example: {json.dumps(exp['summary'])} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"train: phase wall {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -1285,6 +1468,11 @@ def main() -> int:
     # -- 7. restart ----------------------------------------------------------
     restart_phase([key for key, _, v in zoo_models() if isinstance(v, str)],
                   len(_build.SOURCES))
+
+    # -- 8. train ------------------------------------------------------------
+    train_counts = train_phase(args.seed)
+    for name in report:
+        report[name]["train_launches"] = train_counts[name]
 
     print(card)
     print(json.dumps({"kernels": list(report.values())}))

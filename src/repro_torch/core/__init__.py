@@ -1,1 +1,2 @@
-"""FuSeConv operator math and operator IR."""
+"""FuSeConv operator math, operator IR, NOS scaffolding, OFA elastic
+stages and the hybrid-network search."""

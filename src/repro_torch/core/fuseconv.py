@@ -133,11 +133,32 @@ def fuse_conv2d_full(x: Tensor, w_row: Tensor, w_col: Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Parameter containers + init.  The NOS ``scaffold`` variant and the
-# temporal form are not ported yet.
+# Parameter containers + init.  The temporal (sequence) form belongs to the
+# LM stack and is not ported yet.
 # ---------------------------------------------------------------------------
 
-VARIANTS = ("depthwise", "fuse_half", "fuse_full")
+VARIANTS = ("depthwise", "fuse_half", "fuse_full", "scaffold")
+
+
+# ---------------------------------------------------------------------------
+# NOS weight derivation (paper §4.1): FuSe filters are linear projections of
+# the depthwise teacher kernel through a shared KxK adapter:
+#   row filter (Kx1, channel c) = A @ T_w[:, mid, c]   (middle column)
+#   col filter (1xK, channel c) = A @ T_w[mid, :, c]   (middle row)
+# One adapter per layer, shared across row/col and across all channels
+# (only K^2 extra trainable params per scaffolded layer).
+# ---------------------------------------------------------------------------
+
+def derive_fuse_from_teacher(dw: Tensor, adapter: Tensor,
+                             variant: str = "fuse_half") -> dict:
+    """dw: (K,K,C) teacher depthwise kernel; adapter: (K,K)."""
+    mid = dw.shape[0] // 2
+    r_full = adapter @ dw[:, mid, :]    # (K, C): middle column per channel
+    c_full = adapter @ dw[mid, :, :]    # (K, C): middle row per channel
+    if variant == "fuse_half":
+        c_r = dw.shape[-1] // 2
+        return {"row": r_full[:, :c_r], "col": c_full[:, c_r:]}
+    return {"row": r_full, "col": c_full}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,6 +184,8 @@ class SpatialOpSpec:
             return k * k * c
         if self.variant == "fuse_half":
             return k * c           # K per channel (C/2 rows + C/2 cols)
+        if self.variant == "scaffold":
+            return k * k * c + k * k   # teacher kernel + shared adapter
         return 2 * k * c           # fuse_full
 
     def macs(self, out_h: int, out_w: int) -> int:
@@ -186,12 +209,18 @@ def randn_scaled(generator: torch.Generator, shape, scale: float,
 def init_spatial_op(generator: torch.Generator, spec: SpatialOpSpec, *,
                     device="cuda", dtype=torch.float32) -> dict:
     """He-normal spatial-stage weights drawn from ``generator`` (the port's
-    own init: the numbers differ from ``jax.random`` for the same seed)."""
+    own init: the numbers differ from ``jax.random`` for the same seed).
+    A ``scaffold`` stage holds a depthwise kernel, an identity adapter and
+    a 0-d ``choice`` (0 = depthwise, 1 = FuSe-Half)."""
     k, c = spec.kernel, spec.channels
-    fan_in = k * k if spec.variant == "depthwise" else k
+    fan_in = k * k if spec.variant in ("depthwise", "scaffold") else k
     scale = float(np.sqrt(2.0 / fan_in))
     if spec.variant == "depthwise":
         return {"dw": randn_scaled(generator, (k, k, c), scale, device, dtype)}
+    if spec.variant == "scaffold":
+        return {"dw": randn_scaled(generator, (k, k, c), scale, device, dtype),
+                "adapter": torch.eye(k, device=device, dtype=dtype),
+                "choice": torch.zeros((), device=device, dtype=dtype)}
     c_r = c // 2 if spec.variant == "fuse_half" else c
     c_c = c - c_r if spec.variant == "fuse_half" else c
     return {"row": randn_scaled(generator, (k, c_r), scale, device, dtype),
@@ -203,6 +232,18 @@ def apply_spatial_op(params: dict, spec: SpatialOpSpec, x: Tensor,
     if spec.variant == "depthwise":
         return depthwise_conv2d(x, params["dw"], stride=spec.stride,
                                 padding=padding)
+    if spec.variant == "scaffold":
+        # NOS scaffolded stage: both the teacher (depthwise) and the
+        # adapter-derived FuSe-Half paths, blended by the runtime choice,
+        # so that gradients reach the kernel and the adapter either way.
+        y_dw = depthwise_conv2d(x, params["dw"], stride=spec.stride,
+                                padding=padding)
+        derived = derive_fuse_from_teacher(params["dw"], params["adapter"],
+                                           "fuse_half")
+        y_fuse = fuse_conv2d_half(x, derived["row"], derived["col"],
+                                  stride=spec.stride, padding=padding)
+        choice = params["choice"].to(y_dw.dtype)
+        return choice * y_fuse + (1.0 - choice) * y_dw
     if spec.variant == "fuse_half":
         return fuse_conv2d_half(x, params["row"], params["col"],
                                 stride=spec.stride, padding=padding)

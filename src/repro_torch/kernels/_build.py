@@ -185,11 +185,17 @@ def check_size(what: str, *tensors: torch.Tensor) -> None:
 
 def check_inputs(what: str, *tensors: torch.Tensor) -> torch.device:
     """The checks every wrapper makes before it dispatches: float32,
-    contiguous, within ``MAX_NUMEL``, all on one CPU or CUDA device.
-    Returns that device."""
+    contiguous, within ``MAX_NUMEL``, all on one CPU or CUDA device, and,
+    on CUDA, none requiring grad while grad mode is on (a kernel writes a
+    fresh tensor autograd cannot see into, so every gradient above it
+    would be lost).  Returns that device."""
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")
+    if dev.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward pass; "
+                           f"its input requires grad while grad mode is on")
     for t in tensors:
         if t.dtype != torch.float32:
             raise ValueError(f"{what}: needs float32, got {t.dtype}")

@@ -5,9 +5,12 @@ Blocks lower to the operator IR (``repro_torch.core.layerir.OpSpec``) for
 counting/simulation, and carry init/apply for real execution.  The KxK
 spatial stage of every separable block is pluggable: ``depthwise``
 (baseline) | ``fuse_half`` | ``fuse_full`` — ``variant`` may be a single
-string or a per-stage list (hybrid networks).  Parameters are a list of
-dicts of tensors in the JAX package's layouts (HWIO, (K,C), (K,K,C),
-(Cin,Cout)); this slice ports inference only.
+string or a per-stage list (hybrid networks); ``scaffold`` is the NOS
+training stage (``repro_torch.core.nos``).  Parameters are a list of dicts
+of tensors in the JAX package's layouts (HWIO, (K,C), (K,K,C),
+(Cin,Cout)).  ``apply_network`` is inference, ``apply_network_train`` the
+train-mode forward that also returns the new BN statistics; both walk the
+blocks in ``_forward``.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.core import fuseconv as fc
 from repro_torch.core.layerir import OpSpec
 from repro_torch.kernels import backend as kb
 from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_leaves
 from repro_torch.vision import layers as L
 
 Tensor = torch.Tensor
@@ -245,13 +249,15 @@ def _apply_spatial(p: dict, spec: fc.SpatialOpSpec, x: Tensor,
                    backend: kb.Backend) -> Tensor:
     """Spatial stage on the selected backend: one ``fuse1d.fuse_stage``
     launch for FuSe variants and ``depthwise_kxk`` for the baseline on
-    ``cuda``; plain ops on ``torch``."""
+    ``cuda``; plain ops on ``torch`` and for ``scaffold`` stages (as the
+    reference keeps them on XLA)."""
     if backend.use_kernels and spec.variant in ("fuse_half", "fuse_full"):
         f = (kops.fuse_conv2d_half if spec.variant == "fuse_half"
              else kops.fuse_conv2d_full)
         return f(x, p["row"], p["col"], stride=spec.stride)
     if backend.use_kernels and spec.variant == "depthwise":
-        return kops.depthwise_kxk(x.contiguous(), p["dw"], stride=spec.stride)
+        return kops.depthwise_kxk(x.contiguous(), p["dw"].contiguous(),
+                                  stride=spec.stride)
     return fc.apply_spatial_op(p, spec, x)
 
 
@@ -273,7 +279,9 @@ def _pointwise(x: Tensor, w: Tensor, backend: kb.Backend) -> Tensor:
 def _fused_block(x: Tensor, sp: dict, bn1: dict, w_pw: Tensor, variant: str,
                  stride: int, act: str) -> Tensor:
     g, bb = L.bn_inference_affine(bn1)
-    return kops.fuseconv_fused(x.contiguous(), sp["row"], sp["col"], w_pw,
+    # banks derived by a NOS collapse are column slices, not contiguous
+    return kops.fuseconv_fused(x.contiguous(), sp["row"].contiguous(),
+                               sp["col"].contiguous(), w_pw.contiguous(),
                                variant=variant, stride=stride, scale=g,
                                bias=bb, act=act)
 
@@ -286,16 +294,42 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
     1x1 pointwise convs: None/"torch" (plain ops), "cuda" (the kernels,
     fused on) or "cuda_nofused".  On ``cuda`` a fusable block (FuSe
     variant, no SE) runs its spatial stage + bn1 + act + pointwise mix as
-    one ``fuseconv_fused`` launch.
+    one ``fuseconv_fused`` launch.  The kernels have no backward pass, so a
+    kernel backend refuses grad-requiring parameters or input while grad
+    mode is on (the gradients would be lost).
     """
     bk = kb.resolve_backend(backend)
+    if bk.use_kernels and torch.is_grad_enabled() and (
+            x.requires_grad or any(
+                isinstance(t, Tensor) and t.requires_grad
+                for t in tree_leaves(params))):
+        raise RuntimeError(
+            f"apply_network: backend {bk.key!r} runs kernels without a "
+            f"backward pass; train with apply_network_train (plain ops) or "
+            f"run under torch.no_grad()")
+    return _forward(params, net, x, variant, bk, train=False)[0]
+
+
+def apply_network_train(params: list, net: NetworkDef, x: Tensor,
+                        variant="depthwise"):
+    """Train-mode forward: ``(logits, new_params)``, where ``new_params``
+    differs from ``params`` only in the BN running statistics (batch
+    statistics, ``0.9 * old + 0.1 * batch``).  Plain ops throughout, never
+    fused, as the reference trains on XLA; autograd gives the gradients."""
+    return _forward(params, net, x, variant, kb.TORCH, train=True)
+
+
+def _forward(params: list, net: NetworkDef, x: Tensor, variant,
+             bk: kb.Backend, *, train: bool):
     variants = _variant_list(net, variant)
+    new_params: list = []
     vi = 0
     c = net.in_channels
     for b, p in zip(net.blocks, params):
+        np_ = dict(p)
         if isinstance(b, Stem):
             x = fc.conv2d(x, p["w"], stride=b.stride)
-            x, _ = L.apply_bn(p["bn"], x, train=False)
+            x, np_["bn"] = L.apply_bn(p["bn"], x, train=train)
             x = L.ACTS[b.act](x)
             c = b.cout
         elif isinstance(b, DWSep):
@@ -306,10 +340,10 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
                                  b.act)
             else:
                 x = _apply_spatial(p["sp"], spec, x, bk)
-                x, _ = L.apply_bn(p["bn1"], x, train=False)
+                x, np_["bn1"] = L.apply_bn(p["bn1"], x, train=train)
                 x = L.ACTS[b.act](x)
                 x = _pointwise(x, p["pw"], bk)
-            x, _ = L.apply_bn(p["bn2"], x, train=False)
+            x, np_["bn2"] = L.apply_bn(p["bn2"], x, train=train)
             x = L.ACTS[b.act](x)
             c = b.cout
         elif isinstance(b, MBConv):
@@ -318,7 +352,7 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
             cin = c
             if b.exp != cin:
                 x = _pointwise(x, p["expand"], bk)
-                x, _ = L.apply_bn(p["bn0"], x, train=False)
+                x, np_["bn0"] = L.apply_bn(p["bn0"], x, train=train)
                 x = L.ACTS[b.act](x)
             spec = fc.SpatialOpSpec(v, b.kernel, b.exp, b.stride)
             if _fusable(bk, v, se=b.se):
@@ -326,12 +360,12 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
                                  b.stride, b.act)
             else:
                 x = _apply_spatial(p["sp"], spec, x, bk)
-                x, _ = L.apply_bn(p["bn1"], x, train=False)
+                x, np_["bn1"] = L.apply_bn(p["bn1"], x, train=train)
                 x = L.ACTS[b.act](x)
                 if b.se:
                     x = L.apply_se(p["se"], x)
                 x = _pointwise(x, p["project"], bk)
-            x, _ = L.apply_bn(p["bn2"], x, train=False)
+            x, np_["bn2"] = L.apply_bn(p["bn2"], x, train=train)
             if b.stride == 1 and cin == b.cout:
                 x = x + shortcut
             c = b.cout
@@ -340,7 +374,7 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
                 x = _pointwise(x, p["w"], bk)
             else:
                 x = fc.conv2d(x, p["w"], stride=b.stride)
-            x, _ = L.apply_bn(p["bn"], x, train=False)
+            x, np_["bn"] = L.apply_bn(p["bn"], x, train=train)
             x = L.ACTS[b.act](x)
             c = b.cout
         elif isinstance(b, Head):
@@ -350,7 +384,8 @@ def apply_network(params: list, net: NetworkDef, x: Tensor,
             x = L.apply_dense(p["fc"], x)
         else:
             raise TypeError(b)
-    return x
+        new_params.append(np_)
+    return x, new_params
 
 
 def kernel_launches(net: NetworkDef, variant="depthwise",
@@ -364,6 +399,9 @@ def kernel_launches(net: NetworkDef, variant="depthwise",
       stage, ``fuse1d.fuse_stage``);
     - ``depthwise_kxk``: ``b, h, w, c, k, stride``;
     - ``fuseconv_fused``: ``b, h, w, c, k, stride, variant, cout, act``.
+
+    A ``scaffold`` stage runs plain ops on every backend, so it lists no
+    spatial launch; its pointwise convs still launch ``matmul``.
     """
     variants = _variant_list(net, variant)
     out: List[tuple] = []
@@ -374,7 +412,7 @@ def kernel_launches(net: NetworkDef, variant="depthwise",
         shape = dict(b=batch, h=h, w=w, c=ch, k=k, stride=stride)
         if v == "depthwise":
             out.append(("depthwise_kxk", shape))
-        else:
+        elif v != "scaffold":
             out.append(("fuse1d", dict(shape, variant=v)))
 
     vi = 0

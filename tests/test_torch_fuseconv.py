@@ -149,8 +149,11 @@ def test_spatial_op_spec_and_apply_match_jax(variant, stride):
 
 
 def test_unported_variant_and_padding_refused():
+    # ``scaffold`` is ported now (tests/test_torch_nos.py); an unknown
+    # variant is still refused
+    assert tfc.SpatialOpSpec("scaffold", 3, 4).variant == "scaffold"
     with pytest.raises(ValueError):
-        tfc.SpatialOpSpec("scaffold", 3, 4)
+        tfc.SpatialOpSpec("fuse_quarter", 3, 4)
     with pytest.raises(ValueError):
         tfc.conv2d(torch.zeros(1, 4, 4, 1), torch.zeros(3, 3, 1, 1),
                    padding="same")

@@ -696,3 +696,57 @@ def test_fuse_stage_is_one_device_kernel(variant):
     assert tfuse1d.fuse1d.launches == before + 1
     assert sum(e.count for e in rows) == 1, [e.key for e in rows]
     assert "stage_direct_kernel" in rows[0].key
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_grad_requiring_inputs_on_gpu():
+    """A kernel writes a fresh tensor that autograd cannot see into, so on
+    the card every wrapper refuses an input that requires grad while grad
+    mode is on (``_build.check_inputs``); under ``no_grad`` it launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    gen = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    x, w = r(2, 9, 9, 8), r(3, 3, 8)
+    calls = {
+        "matmul": lambda g: tmatmul.matmul(g(r(16, 8)), r(8, 4)),
+        "fuse1d": lambda g: tops.fuse_conv2d_half(g(x), r(3, 4), r(3, 4)),
+        "depthwise_kxk": lambda g: tfused.depthwise_kxk(g(x), w),
+        "fuseconv_fused": lambda g: tfused.fuseconv_fused(
+            x, g(r(3, 4)), r(3, 4), r(8, 8), variant="fuse_half"),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="backward"):
+            call(lambda t: t.requires_grad_(True))
+        before = tops.launch_counts()[name]
+        with torch.no_grad():
+            call(lambda t: t.requires_grad_(True))
+        assert tops.launch_counts()[name] == before + 1, name
+
+
+@pytest.mark.gpu
+def test_nos_hybrid_shapes_on_gpu():
+    """Every distinct bucket-8 kernel shape of the NOS-collapsed hybrid
+    MobileNetV3-Large that ``chip_smoke.py`` phase 8 serves (stages under
+    ``greedy_latency_mask(net, 0.5)`` FuSe-Half, the rest depthwise)
+    against its plain version, through the per-kernel tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    from repro_torch.core import search as tsearch
+    net = tzoo.mobilenet_v3_large()
+    variants = tsearch.mask_to_variants(tsearch.greedy_latency_mask(net, 0.5))
+    seen = {}
+    for name, sh in tzoo.kernel_launches(net, variants, 8):
+        seen.setdefault((name, tuple(sh.items())), (name, sh))
+    assert {name for name, _ in seen.values()} == {
+        "matmul", "fuse1d", "depthwise_kxk", "fuseconv_fused"}
+    for name, sh in seen.values():
+        if name == "matmul":
+            test_matmul_on_gpu(sh["m"], sh["k"], sh["n"], 0)
+        elif name == "fuse1d":
+            test_fuse_stage_on_gpu(sh)
+        else:
+            test_fused_kernels_on_gpu((name, sh))

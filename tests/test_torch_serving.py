@@ -158,6 +158,7 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "examples" / "nos_distillation_torch.py")
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/serving/vision/interface.py",
@@ -165,7 +166,16 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/launch/__init__.py",
             "src/repro_torch/launch/serve_vision.py",
             "src/repro_torch/serving/vision/compilecache.py",
-            "src/repro_torch/vision/counting.py"} <= names
+            "src/repro_torch/vision/counting.py",
+            "src/repro_torch/core/nos.py",
+            "src/repro_torch/core/ofa.py",
+            "src/repro_torch/core/search.py",
+            "src/repro_torch/train/vision.py",
+            "src/repro_torch/optim/optimizers.py",
+            "src/repro_torch/optim/schedules.py",
+            "src/repro_torch/data/vision_synth.py",
+            "src/repro_torch/data/prefetch.py",
+            "examples/nos_distillation_torch.py"} <= names
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imported_modules(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
