@@ -20,7 +20,11 @@ Phases (any failure exits non-zero, and no result line is printed):
             version and one PyTorch library call for the same function,
             beside the roofline bound from the shapes.  ``fuse1d``'s unit
             is the FuSe spatial stage (``ops.fuse_conv2d_half``, one
-            launch); its 1-D form is checked and timed beside it.  Then the
+            launch); its 1-D form is checked and timed beside it, and its
+            temporal form (the LM stack's ``ops.fuse_conv1d_temporal``) at
+            RecurrentGemma-2B's prefill shape x (4, 512, 2560) K4 causal
+            in float32 and in bfloat16 (bf16 within one bf16 step), each
+            a row of its own in the ``kernels`` line.  Then the
             same for every distinct shape of every kernel launch the main
             path makes at bucket 8 (``zoo.kernel_launches``), with the
             main-path sums (launches x ms, launches x bound) and, for
@@ -77,7 +81,21 @@ Phases (any failure exits non-zero, and no result line is printed):
             last, ``examples/nos_distillation_torch.py``'s teacher,
             in-place and NOS runs at its scale (250 steps each), whose
             losses must fall; the three accuracies and
-            ``recovered_fraction`` are printed.
+            ``recovered_fraction`` are printed;
+9. lm     — ``recurrentgemma_2b`` at its production config (26 layers, 18
+            RG-LRU, d_model 2560, vocab 256000, 2.68 B parameters) from
+            the port's seeded init, in bfloat16 and then in float32, each
+            serving 4 requests (prompts of 64, 200, 333 and 512 token ids
+            from ``--seed``, 32 new tokens, max_seq 1024) through
+            ``ServeEngine.generate`` on backends ``cuda`` and ``torch``
+            with the same weights: exactly 18 ``fuse1d`` launches per
+            prefill and per forward and none per decode step; the logits
+            of every call within ``KERNEL_RTOL`` (fp32) or
+            ``LM_BF16_RTOL`` (bf16) of ``torch`` and identical tokens;
+            layer 0's temporal conv against its plain version; prefill
+            tokens/s, decode ms per step and peak device memory printed;
+            then ``python -m repro_torch.launch.serve --arch
+            recurrentgemma_2b`` as a subprocess (one line per prompt).
 
 ``--profile`` adds one more served round of each engine, sync and
 pipelined, under ``torch.profiler`` and prints device time by kernel and
@@ -112,6 +130,18 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, CUDA cores
 KERNEL_RTOL = 1e-4              # max|kernel - plain| <= 1e-4 * max(1, max|plain|)
+# One bf16 step: bf16 keeps 8 significant bits, so its numbers in [1, 2)
+# are 2^-7 apart and a value's rounding error is at most 2^-8 of it.  A
+# kernel and its plain version that round one output differently differ by
+# one step of that output, at most 2^-7 of the largest |plain|.
+BF16_STEP = 2.0 ** -7
+# The LM's bf16 logits, backend cuda against torch: the two differ only in
+# the temporal conv's rounding (one bf16 step, 2^-8 relative, of a conv
+# output in at most each of the 18 rec layers).  Each such difference
+# enters a bf16 residual stream that rounds at 2^-8 again; allowing eight
+# compounded roundings of 2^-8 gives 2^-5 of the logits' scale
+# (max(1, max|torch|), up to the softcap of 30).
+LM_BF16_RTOL = 8 * 2.0 ** -8
 SERVE_RTOL = 1e-5               # max|served - reference| <= 1e-5 * max(1, max|ref|)
 L2_FLUSH_BYTES = 64 << 20       # larger than the H100's 50 MB L2
 SPIN_CYCLES = 4_000_000         # ~2 ms at the H100's clock: longer than the
@@ -250,6 +280,8 @@ LIBRARY_NAMES = {
     "fuse1d": "F.conv2d(groups=C) on the padded NCHW input, row and column "
               "taps in a KxK weight",
     "fuse1d (1-D)": "F.conv1d(groups=C) on (N, C, T+K-1)",
+    "fuse1d (temporal)": "F.conv1d(groups=C) on the causally padded "
+                         "(B, C, T+K-1) input",
     "depthwise_kxk": "F.conv2d(groups=C) on the padded input",
     "fuseconv_fused": "chain: cuDNN conv2d(groups) x2 + cat + affine + act "
                       "+ cuBLAS matmul",
@@ -296,6 +328,24 @@ def shape_case(name: str, sh: dict, randn) -> dict:
                     library=lambda: torch.matmul(a, w),
                     nbytes=4 * (m * k + k * n + m * n), flops=2 * m * k * n,
                     shape=f"a ({m}, {k}) @ b ({k}, {n})")
+    if name == "fuse1d" and "causal" in sh:
+        # the LM stack's temporal form in its dtype: x (B, T, C), w (K, C)
+        b, t, c, k = sh["b"], sh["t"], sh["c"], sh["k"]
+        dt = getattr(torch, sh["dtype"])
+        x, wt = randn(b, t, c).to(dt), randn(k, c, scale=0.5).to(dt)
+        lo = k - 1 if sh["causal"] else (k - 1) // 2
+        x_ncw = F.pad(x.permute(0, 2, 1), (lo, k - 1 - lo)).contiguous()
+        w_ncw = wt.t().reshape(c, 1, k).contiguous()
+        return dict(run=lambda: kops.fuse_conv1d_temporal(
+                        x, wt, causal=sh["causal"]),
+                    plain=lambda: kf1.fuse_temporal_plain(
+                        x, wt, causal=sh["causal"]),
+                    library=lambda: F.conv1d(x_ncw, w_ncw, groups=c),
+                    library_name=LIBRARY_NAMES["fuse1d (temporal)"],
+                    nbytes=x.element_size() * (2 * b * t * c + k * c),
+                    flops=2 * k * b * t * c,
+                    shape=f"x ({b}, {t}, {c}) {sh['dtype']}, w ({k}, {c}), "
+                          f"{'causal' if sh['causal'] else 'centred'}")
     if name == "fuse1d" and "n" in sh:
         n, t, c, k = sh["n"], sh["t"], sh["c"], sh["k"]
         xp, w1 = randn(n, t, c), randn(k, c, scale=0.5)
@@ -986,6 +1036,244 @@ def restart_phase(models, expect_builds, launch_extra=()) -> None:
           f"cold {cold['warmup_ms']:.1f}, warm {warm['warmup_ms']:.1f}")
 
 
+# phase 9: RecurrentGemma-2B at its production config, served through the
+# ServeEngine; a chat-style batch of mixed prompt lengths
+LM_ARCH = "recurrentgemma_2b"
+LM_PROMPT_LENS = (64, 200, 333, 512)
+LM_MAX_NEW, LM_MAX_SEQ, LM_SLOTS = 32, 1024, 4
+LM_LAUNCH_NEW = 16
+LM_LINE = re.compile(r"^prompt \[([\d ]*)\] -> \[([\d, ]*)\]$")
+
+
+def traced_generate(engine, reqs, sync) -> dict:
+    """``engine.generate(reqs)`` with every prefill and decode call of the
+    engine timed (between synchronizes), its logits copied to the host
+    (after the timed span, so that the device's peak memory is the
+    engine's) and its ``fuse1d`` launches counted; every launch counter is
+    zeroed just before the generate and read just after."""
+    import torch
+    from repro_torch.kernels import fuse1d as kf1, ops as kops
+    log = {k: [] for k in ("prefill", "decode", "prefill_s", "decode_s",
+                           "prefill_launches", "decode_launches")}
+
+    def traced(fn, kind):
+        def call(*args):
+            n0 = kf1.fuse1d.launches
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = fn(*args)
+            sync()
+            log[f"{kind}_s"].append(time.perf_counter() - t0)
+            log[f"{kind}_launches"].append(kf1.fuse1d.launches - n0)
+            log[kind].append(logits.cpu())
+            return logits, cache
+        return call
+
+    engine._prefill = traced(engine._prefill, "prefill")
+    engine._decode = traced(engine._decode, "decode")
+    on_card = engine.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(engine.device)
+    log["resident_bytes"] = (torch.cuda.memory_allocated(engine.device)
+                             if on_card else 0)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    log["tokens"] = engine.generate(reqs)
+    log["wall_s"] = time.perf_counter() - t0
+    log["counts"] = kops.launch_counts()
+    log["peak_bytes"] = (torch.cuda.max_memory_allocated(engine.device)
+                         if on_card else 0)
+    return log
+
+
+def lm_phase(seed: int, device="cuda", card="", smoke=False,
+             prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
+             launch_extra=()) -> dict:
+    """Phase 9: ``recurrentgemma_2b`` at its production config (26 layers,
+    d_model 2560, vocab 256000; ``smoke``: the smoke config, for a CPU
+    rehearsal) from the port's seeded init on ``device``, in bfloat16 (the
+    published dtype) and then in float32, each served through
+    ``ServeEngine.generate``: 4 requests with prompts of ``prompt_lens``
+    token ids drawn from ``seed``, ``max_new`` new tokens each, max_seq
+    1024, 4 slots, on backend ``cuda`` and on backend ``torch`` with the
+    same weights.  Fails unless (a) the ``fuse1d`` counter moves by
+    exactly the 18 rec layers per prefill (and per ``forward``) and by 0
+    per decode step on ``cuda``, and never on ``torch``; (b) in float32
+    the prefill and every decode step's logits of ``cuda`` are within
+    ``KERNEL_RTOL`` of ``torch`` and the token lists identical; (c) the
+    same in bfloat16 within ``LM_BF16_RTOL``; (d) layer 0's temporal conv
+    through the kernel agrees with its plain version (``KERNEL_RTOL``,
+    one bf16 step); (e) every logit is finite.  Then the launcher
+    ``python -m repro_torch.launch.serve`` in a subprocess must exit 0
+    with one line per prompt.  Returns, per dtype, the ``cuda`` generate's
+    ``fuse1d`` launches and its readings."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs as C, tree
+    from repro_torch.kernels import fuse1d as kf1, ops as kops
+    from repro_torch.models import recurrent as rec
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    base = C.get_smoke_config(LM_ARCH) if smoke else C.get_config(LM_ARCH)
+    n_rec = base.layer_pattern.count("rec")
+    rng = np.random.default_rng((seed, 9))
+    prompts = [rng.integers(0, base.vocab_size, n).tolist()
+               for n in prompt_lens]
+    reqs = [Request(p, max_new) for p in prompts]
+    print(f"lm: {LM_ARCH} ({base.num_layers} layers, {n_rec} rec, d_model "
+          f"{base.d_model}, vocab {base.vocab_size}, "
+          f"{base.param_count() / 1e9:.3f} B parameters), prompts "
+          f"{list(prompt_lens)}, {max_new} new tokens each, max_seq "
+          f"{LM_MAX_SEQ}, {LM_SLOTS} slots; {card}")
+    out = {}
+    for dtype, rtol, conv_rtol in (("bfloat16", LM_BF16_RTOL, BF16_STEP),
+                                   ("float32", KERNEL_RTOL, KERNEL_RTOL)):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(
+            torch.Generator(device=dev).manual_seed(seed), device=dev)
+        sync()
+        init_s = time.perf_counter() - t0
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in tree.tree_leaves(params))
+        with torch.inference_mode():
+            tokens = torch.tensor([p[:min(prompt_lens)] for p in prompts],
+                                  device=dev)
+            m_cuda = build_model(cfg, "cuda")
+            n0 = kf1.fuse1d.launches
+            fwd = m_cuda.forward(params, tokens)[:, -1].cpu()
+            fwd_launches = kf1.fuse1d.launches - n0
+            # (d) layer 0's temporal conv, kernel against plain
+            lp = tree.tree_map(lambda a: a[0], params["segments"][0])["k0"]
+            u = rms_norm(params["embed"][tokens], lp["ln1"],
+                         cfg.norm_eps) @ lp["rec"]["w_in"]
+            got = kops.fuse_conv1d_temporal(u, lp["rec"]["conv"])
+            ref = kf1.fuse_temporal_plain(u, lp["rec"]["conv"])
+            assert got.dtype == ref.dtype == params["embed"].dtype
+            conv_err = (got.float() - ref.float()).abs().max().item()
+            conv_scale = max(1.0, ref.float().abs().max().item())
+            del lp, u, got, ref
+        runs = {bk: traced_generate(
+                    ServeEngine(build_model(cfg, bk), params,
+                                max_seq=LM_MAX_SEQ, batch_slots=LM_SLOTS),
+                    reqs, sync)
+                for bk in ("cuda", "torch")}
+        cu, to = runs["cuda"], runs["torch"]
+        # (a) launches: n_rec per prefill, none per decode step
+        if (cu["prefill_launches"] != [n_rec] * len(cu["prefill"])
+                or any(cu["decode_launches"])
+                or cu["counts"] != {**{k: 0 for k in cu["counts"]},
+                                    "fuse1d": n_rec * len(cu["prefill"])}):
+            raise SystemExit(
+                f"lm {dtype}: fuse1d launches per prefill "
+                f"{cu['prefill_launches']}, per decode step "
+                f"{sorted(set(cu['decode_launches']))}, counts "
+                f"{cu['counts']}; expected {n_rec} per prefill, 0 per step")
+        if any(to["prefill_launches"]) or any(to["decode_launches"]) or any(
+                to["counts"].values()):
+            raise SystemExit(f"lm {dtype}: backend torch launched kernels: "
+                             f"{to['counts']}")
+        if fwd_launches != n_rec:
+            raise SystemExit(f"lm {dtype}: one forward launched fuse1d "
+                             f"{fwd_launches} times, not {n_rec}")
+        if not conv_err <= conv_rtol * conv_scale:
+            raise SystemExit(f"lm {dtype}: layer 0's temporal conv through "
+                             f"the kernel is {conv_err:.3e} off its plain "
+                             f"version (tolerance {conv_rtol} x "
+                             f"{conv_scale:.2f})")
+        # (b), (c), (e): every step's logits, cuda against torch
+        steps = list(zip(cu["prefill"] + cu["decode"],
+                         to["prefill"] + to["decode"]))
+        if len(cu["decode"]) != len(to["decode"]) or not steps:
+            raise SystemExit(f"lm {dtype}: {len(cu['decode'])} decode steps "
+                             f"on cuda, {len(to['decode'])} on torch")
+        worst, worst_abs = 0.0, 0.0
+        for i, (a, b) in enumerate(steps + [(fwd, cu["prefill"][0])]):
+            if a.shape != (LM_SLOTS, cfg.vocab_size) or not bool(
+                    torch.isfinite(a).all() and torch.isfinite(b).all()):
+                raise SystemExit(f"lm {dtype}: logits of call {i} are "
+                                 f"{tuple(a.shape)} or not finite")
+            d = (a - b).abs().max().item()
+            ratio = d / max(1.0, b.abs().max().item())
+            worst, worst_abs = max(worst, ratio), max(worst_abs, d)
+            if ratio > rtol:
+                raise SystemExit(f"lm {dtype}: call {i} (0 = prefill, last "
+                                 f"= forward) of cuda is {ratio:.3e} of the "
+                                 f"scale off torch (tolerance {rtol})")
+        if cu["tokens"] != to["tokens"] or [len(t) for t in cu["tokens"]] \
+                != [max_new] * len(reqs):
+            raise SystemExit(f"lm {dtype}: token lists differ between cuda "
+                             f"and torch, or are short")
+        b = LM_SLOTS
+        row = {}
+        for bk, r in runs.items():
+            pre_s = r["prefill_s"][0]
+            dec_ms = sorted(r["decode_s"])[len(r["decode_s"]) // 2] * 1e3
+            row[bk] = dict(prefill_tokens_per_s=b * min(prompt_lens) / pre_s,
+                           prefill_ms=pre_s * 1e3, decode_ms_median=dec_ms,
+                           decode_ms_mean=sum(r["decode_s"]) * 1e3
+                           / len(r["decode_s"]),
+                           decode_steps=len(r["decode_s"]),
+                           generate_s=r["wall_s"],
+                           peak_bytes=r["peak_bytes"],
+                           resident_bytes=r["resident_bytes"])
+            tps = row[bk]["prefill_tokens_per_s"]
+            print(f"lm {dtype} {bk}: prefill {b}x{min(prompt_lens)} tokens "
+                  f"in {pre_s * 1e3:.2f} ms ({tps:.0f} tokens/s), "
+                  f"{len(r['decode_s'])} decode steps, "
+                  f"median {dec_ms:.3f} ms, mean "
+                  f"{row[bk]['decode_ms_mean']:.3f} ms per step; generate "
+                  f"{r['wall_s']:.2f} s; peak device memory "
+                  f"{r['peak_bytes']} B ({r['resident_bytes']} B allocated "
+                  f"before it); launches {r['counts']}; {card}")
+        print(f"lm {dtype}: parameters {n_bytes} B, init {init_s:.2f} s; "
+              f"cuda vs torch over "
+              f"{len(steps)} calls + one forward: worst max|d| / scale "
+              f"{worst:.3e} (max|d| {worst_abs:.3e}, tolerance {rtol}), "
+              f"tokens identical; layer 0 conv kernel vs plain "
+              f"{conv_err:.3e} (tolerance {conv_rtol} x {conv_scale:.2f}); "
+              f"first request's tokens {cu['tokens'][0][:8]}...; {card}")
+        out[dtype] = dict(launches=cu["counts"]["fuse1d"],
+                          lm_prefill_calls=len(cu["prefill"]),
+                          lm_decode_calls=len(cu["decode"]),
+                          lm_forward_launches=fwd_launches,
+                          lm_logits_worst_rel=worst, lm=row)
+        del params, runs, cu, to, steps, fwd
+    # the launcher, as a user starts it
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    texts = [" ".join(map(str, p[:n])) for p, n in zip(prompts, (8, 5, 3))]
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           LM_ARCH, "--max-new", str(LM_LAUNCH_NEW), "--prompts", *texts,
+           *launch_extra]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    lines = [m for m in map(LM_LINE.match, proc.stdout.splitlines()) if m]
+    if proc.returncode != 0 or [m.group(1) for m in lines] != texts or any(
+            len(m.group(2).split(",")) != LM_LAUNCH_NEW for m in lines):
+        raise SystemExit(f"lm launcher exited with {proc.returncode}, lines "
+                         f"{proc.stdout[-2000:]!r}:\n{proc.stderr[-4000:]}")
+    print(f"lm launcher: exit 0 in {time.perf_counter() - t0:.1f} s, "
+          f"{len(lines)} lines, e.g. {lines[0].group(0)[:120]}")
+    print(f"lm: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def zoo_report(pair_counts, rows, notes) -> dict:
     """Phase 3's zoo-wide report: each distinct bucket-8 shape's row, the
     sums Σ launches x ms, x bound and x library per (network, variant) and
@@ -1179,14 +1467,15 @@ def main() -> int:
         parent_runs.append(parent_times(args.parent, all_shapes, args.seed,
                                         args.profile))
 
-    def check(name, label, case) -> float:
+    def check(name, label, case, rtol=KERNEL_RTOL) -> float:
         """max|kernel - plain|, failing beyond the tolerance or when a
         second call on the same input is not bitwise equal."""
         got, again, ref = case["run"](), case["run"](), case["plain"]()
         torch.cuda.synchronize()
         assert got.shape == ref.shape, (name, label, got.shape, ref.shape)
-        err = (got - ref).abs().max().item()
-        tol = KERNEL_RTOL * max(1.0, ref.abs().max().item())
+        assert got.dtype == ref.dtype, (name, label, got.dtype, ref.dtype)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = rtol * max(1.0, ref.float().abs().max().item())
         if not (err <= tol and torch.isfinite(got).all()):
             raise SystemExit(f"kernel {name} disagrees with its plain "
                              f"version at {label}: {err:.3e} > {tol:.3e}")
@@ -1248,6 +1537,37 @@ def main() -> int:
     print(timed_line("fuse1d (1-D)", report["fuse1d"]["one_d"],
                      case["library_name"]))
     del case
+    # the LM stack's temporal form at RG-2B's prefill shape, in float32 and
+    # bfloat16: its own rows of the kernels line (launches from phase 9)
+    temporal = {}
+    for dtype, rtol in (("float32", KERNEL_RTOL), ("bfloat16", BF16_STEP)):
+        sh = dict(b=4, t=512, c=2560, k=4, causal=True, dtype=dtype)
+        case = shape_case("fuse1d", sh, randn)
+        err = max(check("fuse1d", f"the temporal {dtype} shape", case, rtol),
+                  check("fuse1d", f"a ragged temporal {dtype} shape",
+                        shape_case("fuse1d", dict(b=3, t=5, c=13, k=4,
+                                                  causal=True, dtype=dtype),
+                                   randn), rtol))
+        lib_err = (case["library"]().permute(0, 2, 1).float()
+                   - case["plain"]().float()).abs().max().item()
+        row = measure(case, err)
+        print(timed_line(f"fuse1d (temporal, {dtype})", row,
+                         case["library_name"])
+              + f"; max|library-plain| {lib_err:.3e}")
+        scale = max(1.0, case["plain"]().float().abs().max().item())
+        if dtype == "float32" and lib_err > KERNEL_RTOL * scale:
+            raise SystemExit(f"the library call for the temporal form "
+                             f"disagrees with the plain version: "
+                             f"{lib_err:.3e}")
+        name = f"fuse1d (temporal, {dtype})"
+        temporal[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/fuse1d.cu",
+            replaces="src/repro/kernels/fuse1d.py:65", launches=None, **row,
+            library=case["library_name"], timer_floor_ms=floor_ms,
+            tolerance=rtol, library_max_abs_err=lib_err,
+            called_from="src/repro/kernels/ops.py:39")
+        del case
     # every distinct shape of the zoo at bucket 8, checked and timed;
     # notes printed beside a row but kept out of the kernels line, whose
     # numbers are all measured (or, for bound_ms, computed from the inputs):
@@ -1473,6 +1793,13 @@ def main() -> int:
     train_counts = train_phase(args.seed)
     for name in report:
         report[name]["train_launches"] = train_counts[name]
+    torch.cuda.empty_cache()
+
+    # -- 9. lm ---------------------------------------------------------------
+    lm = lm_phase(args.seed, card=card)
+    for dtype in ("float32", "bfloat16"):
+        temporal[f"fuse1d (temporal, {dtype})"].update(lm[dtype])
+    report.update(temporal)
 
     print(card)
     print(json.dumps({"kernels": list(report.values())}))

@@ -133,8 +133,50 @@ def fuse_conv2d_full(x: Tensor, w_row: Tensor, w_col: Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# Parameter containers + init.  The temporal (sequence) form belongs to the
-# LM stack and is not ported yet.
+# Temporal (sequence) form: the operator's natural primitive, used by the
+# LM stack's RG-LRU conv front-end.
+# ---------------------------------------------------------------------------
+
+def temporal_pad(k: int, causal: bool) -> Tuple[int, int]:
+    """(left, right) zero padding of the temporal form: causal pads K-1 on
+    the left, so position t sees x[t-K+1 .. t]; otherwise ((K-1)//2,
+    K//2), the reference's split."""
+    return (k - 1, 0) if causal else ((k - 1) // 2, k // 2)
+
+
+def fuse_conv1d_temporal(x: Tensor, w: Tensor, *, causal: bool = True
+                         ) -> Tensor:
+    """Bank of independent temporal 1-D convolutions (depthwise over time).
+
+    x: (B, T, C), w: (K, C): B*C independent length-T 1-D convolutions,
+    y[b, t, c] = sum_k x_pad[b, t + k, c] * w[k, c].  The taps accumulate
+    in fp32 in order and the result is cast back to x's dtype.
+    """
+    k = w.shape[0]
+    t = x.shape[1]
+    lo, hi = temporal_pad(k, causal)
+    xp = F.pad(x, (0, 0, lo, hi)).float()
+    w32 = w.float()
+    acc = xp[:, 0:t] * w32[0]
+    for tap in range(1, k):
+        acc = acc + xp[:, tap:tap + t] * w32[tap]
+    return acc.to(x.dtype)
+
+
+def fuse_conv1d_temporal_step(state: Tensor, x_t: Tensor, w: Tensor
+                              ) -> Tuple[Tensor, Tensor]:
+    """Single decode step of the causal temporal conv.
+
+    state: (B, K-1, C) last K-1 inputs; x_t: (B, C).  Returns (new_state,
+    y_t), y_t accumulated in fp32 and cast back.
+    """
+    window = torch.cat([state, x_t[:, None, :]], dim=1)      # (B, K, C)
+    y_t = (window.float() * w.float()).sum(1).to(x_t.dtype)
+    return window[:, 1:, :], y_t
+
+
+# ---------------------------------------------------------------------------
+# Parameter containers + init.
 # ---------------------------------------------------------------------------
 
 VARIANTS = ("depthwise", "fuse_half", "fuse_full", "scaffold")

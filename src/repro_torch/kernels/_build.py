@@ -183,12 +183,16 @@ def check_size(what: str, *tensors: torch.Tensor) -> None:
                              f"{MAX_NUMEL} elements (32-bit indexing)")
 
 
-def check_inputs(what: str, *tensors: torch.Tensor) -> torch.device:
-    """The checks every wrapper makes before it dispatches: float32,
-    contiguous, within ``MAX_NUMEL``, all on one CPU or CUDA device, and,
-    on CUDA, none requiring grad while grad mode is on (a kernel writes a
-    fresh tensor autograd cannot see into, so every gradient above it
-    would be lost).  Returns that device."""
+def check_inputs(what: str, *tensors: torch.Tensor,
+                 dtypes: Sequence[torch.dtype] = (torch.float32,)
+                 ) -> torch.device:
+    """The checks every wrapper makes before it dispatches: one dtype for
+    all tensors, among the kernel's ``dtypes`` (float32 for every kernel;
+    float32 or bfloat16 for the 1-D ``fuse1d`` forms), contiguous, within
+    ``MAX_NUMEL``, all on one CPU or CUDA device, and, on CUDA, none
+    requiring grad while grad mode is on (a kernel writes a fresh tensor
+    autograd cannot see into, so every gradient above it would be lost).
+    Returns that device."""
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")
@@ -196,9 +200,14 @@ def check_inputs(what: str, *tensors: torch.Tensor) -> torch.device:
             t.requires_grad for t in tensors):
         raise RuntimeError(f"{what}: the CUDA kernel has no backward pass; "
                            f"its input requires grad while grad mode is on")
+    dtype = tensors[0].dtype
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise ValueError(f"{what}: needs float32, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != dtype:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            got = ", ".join(str(u.dtype).replace("torch.", "")
+                            for u in tensors)
+            raise ValueError(f"{what}: needs {names}, all tensors of one "
+                             f"dtype; got {got}")
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():

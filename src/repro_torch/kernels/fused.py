@@ -64,11 +64,13 @@ def smem_optin(index: int) -> int:
 
 
 def _vec(*tensors: Tensor, dims: Tuple[int, ...] = ()) -> int:
-    """4 when every dim is a multiple of 4 and every tensor 16-byte
+    """The kernels' vector width: 16 bytes of the element type (4 fp32, 8
+    bf16) when every dim is a multiple of it and every tensor 16-byte
     aligned (the kernels' 16-byte copies and stores), else 1."""
-    ok = all(d % 4 == 0 for d in dims) and all(
+    wide = 16 // tensors[0].element_size()
+    ok = all(d % wide == 0 for d in dims) and all(
         t.data_ptr() % 16 == 0 for t in tensors)
-    return 4 if ok else 1
+    return wide if ok else 1
 
 
 def _round_up(v: int, m: int) -> int:

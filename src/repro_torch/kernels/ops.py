@@ -6,7 +6,9 @@ reduce FuSe-2D to the ``fuse1d`` primitive, the row-window fold and
 ``MAX_T_CHUNK`` chunking that bound VMEM tiles, and the concat.  Here a
 FuSe spatial stage, or one of its banks alone, is one launch of
 ``fuse1d.fuse_stage``, which indexes x in place and writes its output once
-(the TPU path's composition is its plain version).
+(the TPU path's composition is its plain version); the LM stack's temporal
+form is one launch of ``fuse1d.fuse_temporal``, with the causal halo in
+the kernel and no chunking.
 
 ``fuseconv_fused`` and ``depthwise_kxk`` are re-exported so
 ``zoo.apply_network`` has a single kernel namespace, and
@@ -42,6 +44,14 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def fuse_conv1d_temporal(x: Tensor, w: Tensor, *, causal: bool = True
+                         ) -> Tensor:
+    """Depthwise temporal conv via the fuse1d kernel.  x: (B,T,C), w: (K,C);
+    float32 or bfloat16."""
+    return _fuse1d.fuse_temporal(x.contiguous(), w.contiguous(),
+                                 causal=causal)
 
 
 def fuse_conv2d_rows(x: Tensor, w_row: Tensor, *, stride: int = 1) -> Tensor:

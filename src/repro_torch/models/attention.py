@@ -1,0 +1,162 @@
+"""Attention: GQA with blockwise (flash-style) softmax and the decode path.
+
+Port of the GQA half of ``repro.models.attention`` as plain PyTorch ops
+(the reference computes attention outside any Pallas kernel).
+``blockwise_attention`` walks q chunks and, inside each, KV chunks with a
+running max and denominator in fp32, as the reference's two ``lax.scan``
+loops do, so live scores stay O(q_chunk x kv_chunk).  Multi-head latent
+attention (MLA) waits for ROADMAP Queue 1 item 9.3.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.common import dense_init
+from repro_torch.models.config import ArchConfig
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+
+def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
+                        causal: bool = True,
+                        window: Optional[int] = None,
+                        q_offset: int = 0,
+                        q_chunk: int = 512, kv_chunk: int = 1024) -> Tensor:
+    """q: (B,Sq,H,Dk), k: (B,Skv,KH,Dk), v: (B,Skv,KH,Dv); H = KH*G (GQA).
+
+    Returns (B,Sq,H,Dv).  fp32 softmax statistics; O(chunk^2) live scores.
+    """
+    b, sq, h, dk = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kh
+    cq = min(q_chunk, sq)
+    ck = min(kv_chunk, skv)
+    pad_q = -sq % cq
+    pad_k = -skv % ck
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (sq + pad_q) // cq, (skv + pad_k) // ck
+    qs = q.reshape(b, nq, cq, kh, g, dk)
+    kc = k.reshape(b, nk, ck, kh, dk)
+    vc = v.reshape(b, nk, ck, kh, dv)
+    scale = 1.0 / math.sqrt(dk)
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qb = qs[:, qi].float()                              # (B,cq,KH,G,Dk)
+        qpos = q_offset + qi * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, kh, g, cq), NEG_INF, device=dev)
+        l = torch.zeros((b, kh, g, cq), device=dev)
+        acc = torch.zeros((b, kh, g, cq, dv), device=dev)
+        for kj in range(nk):
+            kpos = kj * ck + torch.arange(ck, device=dev)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb,
+                             kc[:, kj].float()) * scale
+            mask = (kpos[None, :] < skv).expand(cq, ck)     # kv padding
+            if causal:
+                mask = mask & (qpos[:, None] >= kpos[None, :])
+            if window is not None:
+                mask = mask & (qpos[:, None] - kpos[None, :] < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", p, vc[:, kj].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]    # (B,KH,G,cq,Dv)
+        outs.append(out.permute(0, 3, 1, 2, 4))             # (B,cq,KH,G,Dv)
+    out = torch.stack(outs, 1).reshape(b, nq * cq, h, dv)
+    return out[:, :sq].to(q.dtype)
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     kv_len: Union[int, Tensor], *,
+                     window: Optional[int] = None) -> Tensor:
+    """One-token attention over a (possibly partially filled) cache.
+
+    q: (B,1,H,Dk); caches: (B,S,KH,D*); kv_len: the current length.
+    """
+    b, _, h, dk = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kh
+    qv = q.reshape(b, kh, g, dk)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qv.float(), k_cache.float())
+    scores = scores / math.sqrt(dk)
+    pos = torch.arange(s, device=q.device)
+    mask = pos < kv_len
+    if window is not None:
+        mask = mask & (pos > kv_len - 1 - window)
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(b, 1, h, -1).to(q.dtype)
+
+
+def init_gqa(generator: torch.Generator, cfg: ArchConfig, dtype,
+             device=None) -> dict:
+    d, h, kh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(generator, (d, h * hd), dtype, device=device),
+        "wk": dense_init(generator, (d, kh * hd), dtype, device=device),
+        "wv": dense_init(generator, (d, kh * hd), dtype, device=device),
+        "wo": dense_init(generator, (h * hd, d), dtype, device=device),
+    }
+
+
+def qkv(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
+        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Projected q (B,S,H,hd), k and v (B,S,KH,hd), rope on q and k."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kh, hd)
+    v = (x @ p["wv"]).reshape(b, s, kh, hd)
+    q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
+    k = rope_lib.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_forward(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig, *,
+                window: Optional[int] = None, causal: bool = True) -> Tensor:
+    """Full-sequence GQA self-attention."""
+    b, s, _ = x.shape
+    q, k, v = qkv(p, x, positions, cfg)
+    out = blockwise_attention(q, k, v, causal=causal, window=window,
+                              q_chunk=cfg.attn_q_chunk,
+                              kv_chunk=cfg.attn_kv_chunk)
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def decode_qkv(p: dict, x: Tensor, pos: int, cfg: ArchConfig
+               ) -> Tuple[Tensor, Tensor, Tensor]:
+    """q, k, v of one token at position ``pos``.  x: (B,1,D)."""
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    return qkv(p, x, positions, cfg)
+
+
+def gqa_decode(p: dict, x: Tensor, cache: dict, pos: int, cfg: ArchConfig,
+               *, window: Optional[int] = None) -> Tuple[Tensor, dict]:
+    """One-token decode.  cache: {k: (B,S,KH,hd), v: ...}; writes at pos."""
+    b = x.shape[0]
+    q, k, v = decode_qkv(p, x, pos, cfg)
+    # dynamic_update_slice clamps the start so the update fits
+    at = min(pos, cache["k"].shape[1] - 1)
+    k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
+    k_cache[:, at:at + 1] = k
+    v_cache[:, at:at + 1] = v
+    out = decode_attention(q, k_cache, v_cache, pos + 1, window=window)
+    y = out.reshape(b, 1, -1) @ p["wo"]
+    return y, {"k": k_cache, "v": v_cache}

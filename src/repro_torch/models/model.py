@@ -1,0 +1,178 @@
+"""LanguageModel: init / forward / prefill / decode over segments.
+
+Port of ``repro.models.model`` for serving.  Parameters of each segment
+are stacked on a leading superblock axis, as in the reference, and a Python
+loop over that axis stands in for ``lax.scan`` (``remat`` and
+``scan_unroll`` have no meaning here and are ignored).  The model carries
+a ``Backend``: ``torch`` runs every op plainly, ``cuda`` puts the RG-LRU
+blocks' temporal FuSeConv on the hand ``fuse1d`` kernel (one launch per
+``rec`` layer per ``forward`` or ``prefill``; a decode step launches none).
+The decode cache's ``pos`` is a Python int.  ``loss`` waits for LM training
+(ROADMAP Queue 1 item 9.5); encoder and vision memory for item 9.4.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import tree
+from repro_torch.kernels.backend import TORCH, Backend, resolve_backend
+from repro_torch.models import stack as S
+from repro_torch.models.common import (dense_init, embed_init, rms_norm,
+                                       softcap, torch_dtype)
+from repro_torch.models.config import ArchConfig
+
+Tensor = torch.Tensor
+PyTree = Any
+
+
+def _stack(trees: List[PyTree]) -> PyTree:
+    """Leaves of equal-structure trees stacked on a new leading axis."""
+    if len(trees) == 1:
+        return tree.tree_map(lambda a: a[None], trees[0])
+    return tree.tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+def _index(stacked: PyTree, r: int) -> PyTree:
+    return tree.tree_map(lambda a: a[r], stacked)
+
+
+@dataclasses.dataclass(frozen=True)
+class LanguageModel:
+    cfg: ArchConfig
+    backend: Backend = TORCH
+
+    def _check(self, extras: Optional[dict] = None) -> List[S.Segment]:
+        """The segments, after refusing what the port does not run."""
+        cfg = self.cfg
+        if cfg.encoder_layers or cfg.num_vision_tokens or extras:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder or vision memory is not ported yet: "
+                f"{S.NOT_PORTED['cross']}")
+        segs = S.plan_segments(cfg)
+        for seg in segs:
+            for kind in seg.kinds:
+                S.check_ported(kind, cfg, seg.use_moe)
+        return segs
+
+    # -- init ---------------------------------------------------------------
+    def init(self, generator: torch.Generator, device="cuda") -> PyTree:
+        """The reference's tree, shapes, dtypes and scales, drawn from
+        ``generator`` (on its own device) and placed on ``device``."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        segs = self._check()
+        kw = dict(device=device)
+        params: Dict[str, Any] = {
+            "embed": embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                dtype, **kw),
+            "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, **kw),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(
+                generator, (cfg.d_model, cfg.vocab_size), dtype, **kw)
+        params["segments"] = [
+            _stack([{f"k{i}": S.init_layer(generator, kind, cfg, seg.use_moe,
+                                            dtype, device)
+                     for i, kind in enumerate(seg.kinds)}
+                    for _ in range(seg.repeats)])
+            for seg in segs]
+        return params
+
+    def _ctx(self, positions: Optional[Tensor]) -> dict:
+        return {"positions": positions, "window": self.cfg.sliding_window,
+                "backend": self.backend}
+
+    def _embed(self, params: PyTree, tokens: Tensor) -> Tuple[Tensor, dict]:
+        b, s_len = tokens.shape
+        positions = torch.arange(s_len, device=tokens.device)[None].expand(
+            b, s_len)
+        return params["embed"][tokens], self._ctx(positions)
+
+    def _logits(self, params: PyTree, x: Tensor) -> Tensor:
+        cfg = self.cfg
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = (params["embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        return softcap((x @ head).float(), cfg.logit_softcap)
+
+    # -- full-sequence forward (prefill logits) -------------------------------
+    def forward(self, params: PyTree, tokens: Tensor,
+                extras: Optional[dict] = None) -> Tensor:
+        """tokens: (B, S) -> logits (B, S, V) in fp32."""
+        segs = self._check(extras)
+        x, ctx = self._embed(params, tokens)
+        for seg, sp in zip(segs, params["segments"]):
+            for r in range(seg.repeats):
+                lp = _index(sp, r)
+                for i, kind in enumerate(seg.kinds):
+                    x = S.layer_forward(lp[f"k{i}"], x, kind, self.cfg,
+                                        seg.use_moe, ctx)
+        return self._logits(params, x)
+
+    # -- decode ---------------------------------------------------------------
+    def init_cache(self, batch: int, max_seq: int,
+                   extras: Optional[dict] = None, device="cuda") -> PyTree:
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        ctx = {"window": cfg.sliding_window}
+        caches = [
+            _stack([{f"k{i}": S.init_layer_cache(kind, cfg, batch, max_seq,
+                                                  dtype, ctx, device)
+                     for i, kind in enumerate(seg.kinds)}
+                    for _ in range(seg.repeats)])
+            for seg in self._check(extras)]
+        return {"layers": caches, "pos": 0}
+
+    def prefill(self, params: PyTree, tokens: Tensor,
+                extras: Optional[dict] = None) -> Tuple[Tensor, PyTree]:
+        """Full-sequence prefill: last-token logits + filled decode caches.
+
+        Returned caches hold exactly the processed sequence (attention k/v
+        of length S or the sliding window; recurrent final states).  The
+        serving engine re-aligns them into fixed-size decode buffers.
+        """
+        segs = self._check(extras)
+        x, ctx = self._embed(params, tokens)
+        caches = []
+        for seg, sp in zip(segs, params["segments"]):
+            per_rep = []
+            for r in range(seg.repeats):
+                lp, new_c = _index(sp, r), {}
+                for i, kind in enumerate(seg.kinds):
+                    x, new_c[f"k{i}"] = S.layer_prefill(
+                        lp[f"k{i}"], x, kind, self.cfg, seg.use_moe, ctx)
+                per_rep.append(new_c)
+            caches.append(_stack(per_rep))
+        logits = self._logits(params, x[:, -1:])
+        return logits[:, 0], {"layers": caches, "pos": tokens.shape[1]}
+
+    def decode_step(self, params: PyTree, token: Tensor, cache: PyTree,
+                    extras: Optional[dict] = None) -> Tuple[Tensor, PyTree]:
+        """token: (B,) -> logits (B,V), updated cache (one position)."""
+        segs = self._check(extras)
+        pos = int(cache["pos"])
+        x = params["embed"][token][:, None, :]               # (B,1,D)
+        ctx = self._ctx(None)
+        new_caches = []
+        for seg, sp, sc in zip(segs, params["segments"], cache["layers"]):
+            per_rep = []
+            for r in range(seg.repeats):
+                lp, lc, new_lc = _index(sp, r), _index(sc, r), {}
+                for i, kind in enumerate(seg.kinds):
+                    x, new_lc[f"k{i}"] = S.layer_decode(
+                        lp[f"k{i}"], x, lc[f"k{i}"], kind, self.cfg,
+                        seg.use_moe, pos, ctx)
+                per_rep.append(new_lc)
+            new_caches.append(_stack(per_rep))
+        logits = self._logits(params, x)
+        return logits[:, 0], {"layers": new_caches, "pos": pos + 1}
+
+
+def build_model(cfg: ArchConfig,
+                backend: Union[str, Backend, None] = None) -> LanguageModel:
+    """``backend``: ``"torch"`` (default) or ``"cuda"`` (a ``Backend`` or
+    one of ``kernels.backend.BACKEND_KEYS``)."""
+    return LanguageModel(cfg, resolve_backend(backend))

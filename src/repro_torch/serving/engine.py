@@ -1,0 +1,124 @@
+"""Batched LM serving engine: prefill -> aligned decode buffers -> greedy loop.
+
+Port of ``repro.serving.engine``.  Prefill emits exact per-layer caches
+(attention K/V, recurrent states); ``_align_cache`` pads them into
+fixed-size decode buffers:
+
+  * full-attention K/V: left-aligned in a (B, max_seq, ...) buffer —
+    decode writes at ``pos`` and masks ``[0, pos)``;
+  * sliding-window K/V: RIGHT-aligned in a (B, window, ...) rolling buffer;
+  * recurrent states: carried as-is.
+
+The engine batches requests into fixed slots (padded), runs one prefill,
+then steps the decode, all under ``torch.inference_mode()``.  The
+reference's ``policy`` (a ``ShardingPolicy``) belongs to
+``launch/sharding.py``, which is not ported: only ``None`` is accepted.
+``_prefill`` and ``_decode`` are the model's calls, kept as attributes as
+in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import tree
+from repro_torch.models.model import LanguageModel
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list                     # token ids
+    max_new_tokens: int = 16
+
+
+class ServeEngine:
+    def __init__(self, model: LanguageModel, params: PyTree, *,
+                 max_seq: int = 256, batch_slots: int = 4,
+                 policy: Optional[Any] = None,
+                 extras: Optional[dict] = None):
+        if policy is not None:
+            raise NotImplementedError(
+                "ServeEngine: a sharding policy is not ported yet "
+                "(launch/sharding.py, ROADMAP Queue 1 item 9.5)")
+        self.model = model
+        self.cfg = model.cfg
+        self.params = params
+        self.max_seq = max_seq
+        self.slots = batch_slots
+        self.extras = extras or {}
+        self.device = params["embed"].device
+        self._prefill = lambda p, t, ex: model.prefill(p, t, ex)
+        self._decode = lambda p, t, c: model.decode_step(p, t, c,
+                                                         self.extras)
+
+    # -- cache alignment ---------------------------------------------------------
+    def _align_entry(self, kind_key: str, arr, prefill_len: int):
+        window = self.cfg.sliding_window
+        if kind_key in ("k", "v"):
+            s = arr.shape[2]          # (n_super, B, S, KH, hd)
+            if window and s <= window:
+                pad = window - s      # right-align rolling window buffer
+                return F.pad(arr, (0, 0, 0, 0, pad, 0))
+            pad = self.max_seq - s    # left-align absolute buffer
+            return F.pad(arr, (0, 0, 0, 0, 0, pad))
+        return arr                    # recurrent states
+
+    def _align_cache(self, cache: PyTree, prefill_len: int) -> PyTree:
+        def walk(path, leaf):
+            name = next((str(p) for p in reversed(path)
+                         if isinstance(p, str)), None)
+            if name == "pos":
+                return leaf
+            return self._align_entry(name, leaf, prefill_len)
+        return tree.tree_map_with_path(walk, cache)
+
+    # -- generation ---------------------------------------------------------------
+    @torch.inference_mode()
+    def generate(self, requests: List[Request]) -> List[list]:
+        """Mixed-length batch, continuous-batching-lite: prefill to the
+        SHORTEST prompt, then advance all slots together — slots still in
+        their prompt are teacher-forced, finished slots decode greedily.
+        No pad token ever enters a cache (batch-independence holds)."""
+        assert len(requests) <= self.slots
+        reqs = list(requests) + [Request([0], 0)] * (self.slots -
+                                                     len(requests))
+        min_prompt = min(len(r.prompt) for r in reqs)
+        max_prompt = max(len(r.prompt) for r in reqs)
+        tokens = torch.tensor([r.prompt[:min_prompt] for r in reqs],
+                              dtype=torch.int64, device=self.device)
+        logits, cache = self._prefill(self.params, tokens, self.extras)
+        cache = self._align_cache(cache, min_prompt)
+        max_new = max(r.max_new_tokens for r in reqs)
+        outs: List[list] = [[] for _ in reqs]
+        greedy = torch.argmax(logits, -1).tolist()
+
+        def record(pos, greedy):
+            # slot i emits when it has consumed its full prompt
+            for i, r in enumerate(reqs):
+                if pos >= len(r.prompt) and len(outs[i]) < r.max_new_tokens:
+                    outs[i].append(int(greedy[i]))
+
+        record(min_prompt, greedy)
+        total_steps = max_prompt + max_new - min_prompt
+        for pos in range(min_prompt, min_prompt + total_steps - 1):
+            feed = []
+            for i, r in enumerate(reqs):
+                if pos < len(r.prompt):
+                    feed.append(r.prompt[pos])          # teacher-force
+                elif outs[i]:
+                    feed.append(outs[i][-1])
+                else:
+                    feed.append(int(greedy[i]))
+            logits, cache = self._decode(
+                self.params, torch.tensor(feed, dtype=torch.int64,
+                                          device=self.device), cache)
+            greedy = torch.argmax(logits, -1).tolist()
+            record(pos + 1, greedy)
+            if all(len(o) >= r.max_new_tokens for o, r in zip(outs, reqs)):
+                break
+        return [outs[i] for i in range(len(requests))]

@@ -17,7 +17,8 @@ versions at every kernel shape that the paper networks launch in
 every edge of their tilings, with a bitwise repeat and one launch per
 call.  They skip where there is no card.
 ``test_matmul_tiling_fits_the_card`` checks the SGEMM's tile picker on the
-CPU.
+CPU.  ``test_fuse_temporal_on_gpu`` holds the LM stack's temporal form of
+``fuse1d`` (float32 and bfloat16) to its plain version on the card.
 """
 import numpy as np
 import pytest
@@ -271,6 +272,38 @@ def test_wrappers_check_inputs():
         tfused.fuseconv_fused(torch.zeros(1, 4, 4, 4), torch.zeros(3, 2),
                               torch.zeros(3, 2), torch.zeros(4, 2),
                               variant="fuse_half", act="gelu")
+
+
+def test_only_the_1d_forms_take_bfloat16():
+    """``fuse1d`` and ``fuse_temporal`` take float32 or bfloat16 (as the
+    dtype-generic Pallas kernel) and return the input's dtype; every other
+    wrapper refuses anything but float32, and no wrapper takes mixed
+    dtypes."""
+    bf = torch.bfloat16
+    y = tfuse1d.fuse1d(torch.zeros(2, 6, 3, dtype=bf),
+                       torch.zeros(3, 3, dtype=bf))
+    assert y.dtype == bf and tuple(y.shape) == (2, 4, 3)
+    y = tfuse1d.fuse_temporal(torch.zeros(2, 6, 3, dtype=bf),
+                              torch.zeros(4, 3, dtype=bf))
+    assert y.dtype == bf and tuple(y.shape) == (2, 6, 3)
+    x = torch.zeros(1, 4, 4, 4, dtype=bf)
+    refused = [
+        lambda: tmatmul.matmul(torch.zeros(4, 3, dtype=bf),
+                               torch.zeros(3, 2, dtype=bf)),
+        lambda: tfused.depthwise_kxk(x, torch.zeros(3, 3, 4, dtype=bf)),
+        lambda: tfused.fuseconv_fused(
+            x, torch.zeros(3, 2, dtype=bf), torch.zeros(3, 2, dtype=bf),
+            torch.zeros(4, 2, dtype=bf), variant="fuse_half"),
+        lambda: tfuse1d.fuse_stage(x, torch.zeros(3, 2, dtype=bf),
+                                   torch.zeros(3, 2, dtype=bf)),
+        lambda: tfuse1d.fuse_temporal(torch.zeros(2, 6, 3),
+                                      torch.zeros(4, 3, dtype=bf)),
+        lambda: tfuse1d.fuse1d(torch.zeros(2, 6, 3).half(),
+                               torch.zeros(3, 3).half()),
+    ]
+    for call in refused:
+        with pytest.raises(ValueError, match="needs float32"):
+            call()
 
 
 def test_cpu_dispatch_launches_nothing():
@@ -750,3 +783,35 @@ def test_nos_hybrid_shapes_on_gpu():
             test_fuse_stage_on_gpu(sh)
         else:
             test_fused_kernels_on_gpu((name, sh))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "centred"])
+@pytest.mark.parametrize("b,t,c,k", [(4, 512, 2560, 4), (3, 5, 13, 4),
+                                     (2, 2, 16, 5), (2, 9, 12, 3),
+                                     (1, 7, 8, 1), (2, 6, 24, 6)])
+def test_fuse_temporal_on_gpu(b, t, c, k, causal, dtype):
+    """The temporal form (one launch of the stage kernel's row bank over
+    (B, T, 1, C) with the causal or centred halo) against its plain
+    version: RG-2B's prefill shape, a ragged width (VEC 1), T < K-1, and
+    widths that take bf16's 8-wide vectors or fall back.  float32 within
+    1e-4 of the scale; bfloat16 within one bf16 step (2^-7 of the scale),
+    and in fact bitwise, since a bf16 x bf16 product is exact in fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    gen = torch.Generator().manual_seed(0)
+    cast = getattr(torch, dtype)
+    x = torch.randn(b, t, c, generator=gen).to("cuda", cast)
+    w = (torch.randn(k, c, generator=gen) * 0.5).to("cuda", cast)
+    plain = tfuse1d.fuse_temporal_plain(x, w, causal=causal)
+    before = tfuse1d.fuse1d.launches
+    got = tops.fuse_conv1d_temporal(x, w, causal=causal)
+    again = tops.fuse_conv1d_temporal(x, w, causal=causal)
+    torch.cuda.synchronize()
+    assert tfuse1d.fuse1d.launches == before + 2
+    assert got.dtype == cast and got.shape == plain.shape
+    rel = 1e-4 if dtype == "float32" else 2.0 ** -7
+    tol = rel * max(1.0, plain.float().abs().max().item())
+    assert (got.float() - plain.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)
