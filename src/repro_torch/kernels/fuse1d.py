@@ -27,9 +27,14 @@ bfloat16 (fp32 accumulation, output in the input's dtype, as the Pallas
 kernel); the stage takes float32.  ``fuse_stage_plain`` is the TPU path's
 composition: the rows/cols reduction onto ``fuse1d_plain`` (transpose,
 SAME pad, 1-D bank at full resolution, strided subsample) and the concat.
-``fuse1d.launches`` counts the launches of all three wrappers.
+``fuse1d.launches`` counts the launches of all three wrappers;
+``fuse1d.by_shape`` counts them by (dtype, x as (B, H, W, C), K, stride,
+leading pad along H, leading pad along W), x being (B, T, 1, C) for the
+1-D forms.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +78,7 @@ def _launch(x: Tensor, w_row: Tensor, w_col: Tensor, y: Tensor, k: int,
                   y.data_ptr(), b, h, wd, c, k, stride, lo_h, lo_w, oh, ow,
                   c_r, c_c, col_src0, vec)
     fuse1d.launches += 1
+    fuse1d.by_shape[(x.dtype, tuple(x.shape), k, stride, lo_h, lo_w)] += 1
 
 
 def fuse1d(x_pad: Tensor, w: Tensor) -> Tensor:
@@ -188,3 +194,4 @@ def fuse_stage(x: Tensor, w_row: Tensor, w_col: Tensor, *,
 
 
 fuse1d.launches = 0
+fuse1d.by_shape = collections.Counter()

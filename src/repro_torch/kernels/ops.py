@@ -13,7 +13,7 @@ the kernel and no chunking.
 ``fuseconv_fused`` and ``depthwise_kxk`` are re-exported so
 ``zoo.apply_network`` has a single kernel namespace, and
 ``launch_counts``/``reset_launch_counts`` read and zero the four kernels'
-launch counters.
+launch counters (and ``fuse1d``'s count by shape).
 """
 from __future__ import annotations
 
@@ -44,6 +44,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _fuse1d.fuse1d.by_shape.clear()
 
 
 def fuse_conv1d_temporal(x: Tensor, w: Tensor, *, causal: bool = True

@@ -4,8 +4,11 @@ Port of the GQA half of ``repro.models.attention`` as plain PyTorch ops
 (the reference computes attention outside any Pallas kernel).
 ``blockwise_attention`` walks q chunks and, inside each, KV chunks with a
 running max and denominator in fp32, as the reference's two ``lax.scan``
-loops do, so live scores stay O(q_chunk x kv_chunk).  Multi-head latent
-attention (MLA) waits for ROADMAP Queue 1 item 9.3.
+loops do, so live scores stay O(q_chunk x kv_chunk).  Cross-attention
+(the reference's ``gqa_forward(kv_override=)``) is ``attend`` of
+``query`` over ``memory_kv``: keys and values from a memory through ``wk``
+and ``wv``, without rope and without a causal mask.
+Multi-head latent attention (MLA) waits for ROADMAP Queue 1 item 9.3.
 """
 from __future__ import annotations
 
@@ -116,12 +119,18 @@ def init_gqa(generator: torch.Generator, cfg: ArchConfig, dtype,
     }
 
 
+def query(p: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """Projected q (B,S,H,hd), without rope."""
+    b, s, _ = x.shape
+    return (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.head_dim)
+
+
 def qkv(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
         ) -> Tuple[Tensor, Tensor, Tensor]:
     """Projected q (B,S,H,hd), k and v (B,S,KH,hd), rope on q and k."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    q = query(p, x, cfg)
     k = (x @ p["wk"]).reshape(b, s, kh, hd)
     v = (x @ p["wv"]).reshape(b, s, kh, hd)
     q = rope_lib.apply_rope(q, positions, cfg.rope_theta)
@@ -129,15 +138,30 @@ def qkv(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
     return q, k, v
 
 
-def gqa_forward(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig, *,
-                window: Optional[int] = None, causal: bool = True) -> Tensor:
-    """Full-sequence GQA self-attention."""
-    b, s, _ = x.shape
-    q, k, v = qkv(p, x, positions, cfg)
+def memory_kv(p: dict, memory: Tensor, cfg: ArchConfig
+              ) -> Tuple[Tensor, Tensor]:
+    """Keys and values (B,M,KH,hd) of a memory (B,M,D), without rope."""
+    b, m, _ = memory.shape
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    return ((memory @ p["wk"]).reshape(b, m, kh, hd),
+            (memory @ p["wv"]).reshape(b, m, kh, hd))
+
+
+def attend(p: dict, q: Tensor, k: Tensor, v: Tensor, cfg: ArchConfig, *,
+           causal: bool, window: Optional[int] = None) -> Tensor:
+    """Blockwise attention of q over (k, v), then the output projection."""
+    b, s = q.shape[:2]
     out = blockwise_attention(q, k, v, causal=causal, window=window,
                               q_chunk=cfg.attn_q_chunk,
                               kv_chunk=cfg.attn_kv_chunk)
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+def gqa_forward(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig, *,
+                window: Optional[int] = None, causal: bool = True) -> Tensor:
+    """Full-sequence GQA self-attention."""
+    q, k, v = qkv(p, x, positions, cfg)
+    return attend(p, q, k, v, cfg, causal=causal, window=window)
 
 
 def decode_qkv(p: dict, x: Tensor, pos: int, cfg: ArchConfig

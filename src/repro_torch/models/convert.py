@@ -2,8 +2,12 @@
 
 The port keeps the reference's tree (``embed``, ``final_norm``, optional
 ``lm_head``, ``segments``: per segment a dict ``k<i>`` of layer dicts whose
-leaves are stacked on a leading superblock axis), so conversion is leaf by
-leaf through ``repro_torch.vision.convert``.  A bfloat16 JAX array becomes
+leaves are stacked on a leading superblock axis; an encoder-decoder's
+``encoder``, one ``enc`` layer dict stacked over the encoder layers, and
+``enc_norm``; a VLM's ``vision_proj``), with every layout as the reference
+has it (the sLSTM's ``r_gates`` as (blocks, bw, bw), a cross layer's tanh
+gates as one scalar per superblock), so conversion is leaf by leaf through
+``repro_torch.vision.convert``.  A bfloat16 JAX array becomes
 an ``ml_dtypes.bfloat16`` numpy array, which ``torch.from_numpy`` refuses:
 such leaves go through float32, which holds every bfloat16 value exactly,
 in both directions.

@@ -13,7 +13,7 @@ The decode cache's ``pos`` is a Python int.  ``loss`` waits for LM training
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -35,6 +35,20 @@ def _stack(trees: List[PyTree]) -> PyTree:
     return tree.tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
 
 
+def _draw_stacked(draw: Callable[[], PyTree], repeats: int) -> PyTree:
+    """``repeats`` trees from ``draw()``, called in order, stacked on a new
+    leading axis.  Each is copied into the stacked leaves as soon as it is
+    drawn and then dropped, so a segment is held once plus one repeat, not
+    twice (a full-width segment's parameters are tens of GB)."""
+    t = draw()
+    out = tree.tree_map(lambda a: a.new_empty((repeats, *a.shape)), t)
+    for r in range(repeats):
+        if r:
+            t = draw()
+        tree.tree_map(lambda dst, src: dst[r].copy_(src), out, t)
+    return out
+
+
 def _index(stacked: PyTree, r: int) -> PyTree:
     return tree.tree_map(lambda a: a[r], stacked)
 
@@ -44,18 +58,18 @@ class LanguageModel:
     cfg: ArchConfig
     backend: Backend = TORCH
 
-    def _check(self, extras: Optional[dict] = None) -> List[S.Segment]:
+    def _check(self) -> List[S.Segment]:
         """The segments, after refusing what the port does not run."""
-        cfg = self.cfg
-        if cfg.encoder_layers or cfg.num_vision_tokens or extras:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder or vision memory is not ported yet: "
-                f"{S.NOT_PORTED['cross']}")
-        segs = S.plan_segments(cfg)
+        segs = S.plan_segments(self.cfg)
         for seg in segs:
             for kind in seg.kinds:
-                S.check_ported(kind, cfg, seg.use_moe)
+                S.check_ported(kind, self.cfg, seg.use_moe)
         return segs
+
+    def _memory_len(self, extras: Optional[dict]) -> int:
+        cfg = self.cfg
+        return ((extras or {}).get("memory_len") or cfg.num_vision_tokens
+                or cfg.encoder_seq or 0)
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator, device="cuda") -> PyTree:
@@ -74,22 +88,63 @@ class LanguageModel:
             params["lm_head"] = dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), dtype, **kw)
         params["segments"] = [
-            _stack([{f"k{i}": S.init_layer(generator, kind, cfg, seg.use_moe,
-                                            dtype, device)
-                     for i, kind in enumerate(seg.kinds)}
-                    for _ in range(seg.repeats)])
+            _draw_stacked(lambda seg=seg: {
+                f"k{i}": S.init_layer(generator, kind, cfg, seg.use_moe,
+                                      dtype, device)
+                for i, kind in enumerate(seg.kinds)}, seg.repeats)
             for seg in segs]
+        if cfg.encoder_layers:
+            params["encoder"] = _draw_stacked(
+                lambda: S.init_layer(generator, "enc", cfg, False, dtype,
+                                     device), cfg.encoder_layers)
+            params["enc_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                             **kw)
+        if cfg.num_vision_tokens:
+            params["vision_proj"] = dense_init(
+                generator, (cfg.d_model, cfg.d_model), dtype, **kw)
         return params
 
     def _ctx(self, positions: Optional[Tensor]) -> dict:
         return {"positions": positions, "window": self.cfg.sliding_window,
                 "backend": self.backend}
 
-    def _embed(self, params: PyTree, tokens: Tensor) -> Tuple[Tensor, dict]:
+    def _embed(self, params: PyTree, tokens: Tensor,
+               extras: Optional[dict]) -> Tuple[Tensor, dict]:
         b, s_len = tokens.shape
         positions = torch.arange(s_len, device=tokens.device)[None].expand(
             b, s_len)
-        return params["embed"][tokens], self._ctx(positions)
+        ctx = self._ctx(positions)
+        self._prepare_memory(params, extras or {}, ctx)
+        return params["embed"][tokens], ctx
+
+    def _encode(self, params: PyTree, memory_embeds: Tensor) -> Tensor:
+        """Encoder stack over the modality embeddings (audio frames)."""
+        b, m, _ = memory_embeds.shape
+        ctx = self._ctx(torch.arange(m, device=memory_embeds.device)[None]
+                        .expand(b, m))
+        h = memory_embeds
+        for r in range(self.cfg.encoder_layers):
+            h = S.layer_forward(_index(params["encoder"], r), h, "enc",
+                                self.cfg, False, ctx)
+        return rms_norm(h, params["enc_norm"], self.cfg.norm_eps)
+
+    def _prepare_memory(self, params: PyTree, extras: dict, ctx: dict
+                        ) -> None:
+        """``ctx["memory"]`` and ``ctx["memory_len"]`` from ``extras``, for
+        a model whose layers attend to a memory."""
+        cfg = self.cfg
+        if cfg.encoder_layers and "memory_embeds" in extras:
+            ctx["memory"] = self._encode(params, extras["memory_embeds"])
+        elif cfg.num_vision_tokens and "vision_embeds" in extras:
+            ctx["memory"] = extras["vision_embeds"] @ params["vision_proj"]
+        elif cfg.encoder_layers or cfg.num_vision_tokens:
+            key = "memory_embeds" if cfg.encoder_layers else "vision_embeds"
+            raise ValueError(f"{cfg.name}: its layers attend to a memory; "
+                             f"pass (B, M, {cfg.d_model}) embeddings as "
+                             f"extras[{key!r}]")
+        else:
+            return
+        ctx["memory_len"] = ctx["memory"].shape[1]
 
     def _logits(self, params: PyTree, x: Tensor) -> Tensor:
         cfg = self.cfg
@@ -102,8 +157,8 @@ class LanguageModel:
     def forward(self, params: PyTree, tokens: Tensor,
                 extras: Optional[dict] = None) -> Tensor:
         """tokens: (B, S) -> logits (B, S, V) in fp32."""
-        segs = self._check(extras)
-        x, ctx = self._embed(params, tokens)
+        segs = self._check()
+        x, ctx = self._embed(params, tokens, extras)
         for seg, sp in zip(segs, params["segments"]):
             for r in range(seg.repeats):
                 lp = _index(sp, r)
@@ -117,13 +172,14 @@ class LanguageModel:
                    extras: Optional[dict] = None, device="cuda") -> PyTree:
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
-        ctx = {"window": cfg.sliding_window}
+        ctx = {"window": cfg.sliding_window,
+               "memory_len": self._memory_len(extras)}
         caches = [
             _stack([{f"k{i}": S.init_layer_cache(kind, cfg, batch, max_seq,
                                                   dtype, ctx, device)
                      for i, kind in enumerate(seg.kinds)}
                     for _ in range(seg.repeats)])
-            for seg in self._check(extras)]
+            for seg in self._check()]
         return {"layers": caches, "pos": 0}
 
     def prefill(self, params: PyTree, tokens: Tensor,
@@ -134,8 +190,8 @@ class LanguageModel:
         of length S or the sliding window; recurrent final states).  The
         serving engine re-aligns them into fixed-size decode buffers.
         """
-        segs = self._check(extras)
-        x, ctx = self._embed(params, tokens)
+        segs = self._check()
+        x, ctx = self._embed(params, tokens, extras)
         caches = []
         for seg, sp in zip(segs, params["segments"]):
             per_rep = []
@@ -152,10 +208,10 @@ class LanguageModel:
     def decode_step(self, params: PyTree, token: Tensor, cache: PyTree,
                     extras: Optional[dict] = None) -> Tuple[Tensor, PyTree]:
         """token: (B,) -> logits (B,V), updated cache (one position)."""
-        segs = self._check(extras)
+        segs = self._check()
         pos = int(cache["pos"])
         x = params["embed"][token][:, None, :]               # (B,1,D)
-        ctx = self._ctx(None)
+        ctx = dict(self._ctx(None), memory_len=self._memory_len(extras))
         new_caches = []
         for seg, sp, sc in zip(segs, params["segments"], cache["layers"]):
             per_rep = []

@@ -1,20 +1,26 @@
-"""Recurrent blocks: RG-LRU (RecurrentGemma/Griffin).
+"""Recurrent blocks: RG-LRU (RecurrentGemma/Griffin) and xLSTM (mLSTM/sLSTM).
 
-Port of the RG-LRU half of ``repro.models.recurrent``; the xLSTM blocks
-(mLSTM/sLSTM) wait for ROADMAP Queue 1 item 9.2.
+Port of ``repro.models.recurrent``.  Each block opens with a causal
+temporal depthwise convolution, a bank of independent 1-D convolutions:
+the FuSeConv primitive.  It goes through the model's backend: ``torch``
+runs the plain op ``core.fuseconv.fuse_conv1d_temporal``, ``cuda`` the hand
+``fuse1d`` kernel through ``kernels.ops.fuse_conv1d_temporal`` (one launch
+per block per full-sequence call).  A decode step's K-tap window stays the
+plain ``fuse_conv1d_temporal_step``.
 
-The block's causal temporal depthwise convolution is a bank of independent
-1-D convolutions, the FuSeConv primitive.  It goes through the model's
-backend: ``torch`` runs the plain op ``core.fuseconv.fuse_conv1d_temporal``,
-``cuda`` the hand ``fuse1d`` kernel through
-``kernels.ops.fuse_conv1d_temporal`` (one launch per block).  A decode
-step's K-tap window stays the plain ``fuse_conv1d_temporal_step``.
-
-The linear recurrence h_t = a_t h_{t-1} + b_t runs as a log-depth doubling
-scan (forward only: the reference's custom VJP belongs to training).
+The RG-LRU's linear recurrence h_t = a_t h_{t-1} + b_t runs as a log-depth
+doubling scan (forward only: the reference's custom VJP belongs to
+training).  The xLSTM cells are nonlinear and run step by step over time,
+as the reference's ``lax.scan`` does, with their state in fp32 and the
+stabilizer ``m`` starting at -inf.  Their prefill (``*_block_prefill``)
+hoists the projections and the conv out of the time loop (the conv of
+step t reads only inputs) and keeps the decode step's casts, so it returns
+what the reference's ``layer_prefill`` gets by running the decode step
+over the prompt: every position's output and the final state.
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -23,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.core import fuseconv as fc
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.backend import Backend
-from repro_torch.models.common import dense_init, gelu
+from repro_torch.models.common import dense_init, gelu, rms_norm
 from repro_torch.models.config import ArchConfig, RecurrentConfig
 
 Tensor = torch.Tensor
@@ -101,11 +107,19 @@ def rglru_scan(p: dict, x: Tensor) -> Tensor:
     return linear_scan(a, b).to(x.dtype)
 
 
-def temporal_conv(x: Tensor, w: Tensor, backend: Backend) -> Tensor:
-    """The block's causal temporal FuSeConv on the backend's path."""
+def temporal_conv(x: Tensor, w: Tensor, backend: Backend, *,
+                  causal: bool = True) -> Tensor:
+    """The temporal FuSeConv (causal, or centred for a stem) on the
+    backend's path."""
     if backend.use_kernels:
-        return kops.fuse_conv1d_temporal(x, w, causal=True)
-    return fc.fuse_conv1d_temporal(x, w, causal=True)
+        return kops.fuse_conv1d_temporal(x, w, causal=causal)
+    return fc.fuse_conv1d_temporal(x, w, causal=causal)
+
+
+def conv_tail(u: Tensor, conv_width: int) -> Tensor:
+    """The decode state a causal conv leaves after the sequence u
+    (B, S, C): its last K-1 inputs, zero-padded on the left when S < K-1."""
+    return F.pad(u, (0, 0, conv_width - 1, 0))[:, u.shape[1]:]
 
 
 def rglru_branches(p: dict, x: Tensor) -> Tuple[Tensor, Tensor]:
@@ -140,3 +154,250 @@ def rglru_init_state(batch: int, cfg: ArchConfig, dtype, device=None
     return {"conv": torch.zeros((batch, rc.conv_width - 1, w), dtype=dtype,
                                 device=device),
             "h": torch.zeros((batch, w), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix memory, exponential gating).
+# ---------------------------------------------------------------------------
+
+def _xlstm_heads(cfg: ArchConfig) -> int:
+    return cfg.recurrent.heads or cfg.num_heads
+
+
+def init_mlstm_block(generator: torch.Generator, cfg: ArchConfig, dtype,
+                     device=None) -> dict:
+    rc: RecurrentConfig = cfg.recurrent
+    d = cfg.d_model
+    di = 2 * d                      # official up-projection factor 2
+    h = _xlstm_heads(cfg)
+    kw = dict(device=device)
+    return {
+        "w_up": dense_init(generator, (d, 2 * di), dtype, **kw),  # [x_m, z]
+        "conv": dense_init(generator, (rc.conv_width, di), dtype, **kw),
+        "wq": dense_init(generator, (di, di), dtype, **kw),
+        "wk": dense_init(generator, (di, di), dtype, **kw),
+        "wv": dense_init(generator, (di, di), dtype, **kw),
+        "w_if": dense_init(generator, (di, 2 * h), dtype, **kw),  # i,f logits
+        "norm": torch.zeros((di,), dtype=dtype, **kw),
+        "w_down": dense_init(generator, (di, d), dtype, **kw),
+    }
+
+
+def _mlstm_step(state: Tuple[Tensor, Tensor, Tensor], qt: Tensor,
+                kt: Tensor, vt: Tensor, it: Tensor, ft: Tensor
+                ) -> Tuple[Tuple[Tensor, Tensor, Tensor], Tensor]:
+    """One stabilized mLSTM step in fp32.  state (c (B,H,Dh,Dh), n (B,H,Dh),
+    m (B,H)); qt, kt (scaled by 1/sqrt(Dh)) and vt (B,H,Dh); it and the
+    log-sigmoid forget gate ft (B,H).  Returns the new state and the
+    output (B,H,Dh)."""
+    c, n, m = state
+    m_new = torch.maximum(ft + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(ft + m - m_new)
+    c = f_p[..., None, None] * c + \
+        i_p[..., None, None] * (kt[..., :, None] * vt[..., None, :])
+    n = f_p[..., None] * n + i_p[..., None] * kt
+    num = torch.einsum("bhd,bhdv->bhv", qt, c)
+    den = torch.maximum(torch.einsum("bhd,bhd->bh", qt, n).abs(),
+                        torch.exp(-m_new))
+    return (c, n, m_new), num / den[..., None]
+
+
+def _mlstm_cell_inputs(q: Tensor, k: Tensor, v: Tensor, i_log: Tensor,
+                       f_log: Tensor):
+    """The cell's fp32 inputs: q and k over sqrt(Dh), the forget gate
+    through log-sigmoid."""
+    scale = math.sqrt(q.shape[-1])
+    return (q.float() / scale, k.float() / scale, v.float(), i_log.float(),
+            F.logsigmoid(f_log.float()))
+
+
+def mlstm_cell_scan(q: Tensor, k: Tensor, v: Tensor, i_log: Tensor,
+                    f_log: Tensor) -> Tuple[Tensor, Tuple[Tensor, ...]]:
+    """Stabilized recurrent mLSTM from the zero state.  q, k, v (B,S,H,Dh);
+    gates (B,S,H).  Returns the outputs (B,S,H,Dh) in fp32 and the final
+    state (c, n, m)."""
+    b, s, h, dh = q.shape
+    q, k, v, i_log, f_log = _mlstm_cell_inputs(q, k, v, i_log, f_log)
+    dev = q.device
+    state = (torch.zeros((b, h, dh, dh), device=dev),
+             torch.zeros((b, h, dh), device=dev),
+             torch.full((b, h), -math.inf, device=dev))
+    ys = []
+    for t in range(s):
+        state, y = _mlstm_step(state, q[:, t], k[:, t], v[:, t], i_log[:, t],
+                               f_log[:, t])
+        ys.append(y)
+    return torch.stack(ys, 1), state
+
+
+def _mlstm_sequence(p: dict, x: Tensor, cfg: ArchConfig, backend: Backend):
+    """The mLSTM block over a whole sequence up to its cell: the
+    up-projection, the conv (one ``fuse1d`` launch on ``cuda``) and the
+    cell scan.  Returns (y (B,S,di) fp32, xm, xc, z, final cell state)."""
+    b, s, _ = x.shape
+    h = _xlstm_heads(cfg)
+    xm, z = (x @ p["w_up"]).chunk(2, dim=-1)
+    xc = F.silu(temporal_conv(xm, p["conv"], backend))
+    q = (xc @ p["wq"]).reshape(b, s, h, -1)
+    k = (xc @ p["wk"]).reshape(b, s, h, -1)
+    v = (xm @ p["wv"]).reshape(b, s, h, -1)
+    gates = (xc @ p["w_if"]).reshape(b, s, 2, h)
+    y, state = mlstm_cell_scan(q, k, v, gates[:, :, 0], gates[:, :, 1])
+    return y.reshape(b, s, -1), xm, xc, z, state
+
+
+def mlstm_block_forward(p: dict, x: Tensor, cfg: ArchConfig,
+                        backend: Backend) -> Tensor:
+    """As the reference's forward, the cell output stays fp32 through the
+    norm and the down-projection, and is cast to x's dtype at the end."""
+    y, _, xc, z, _ = _mlstm_sequence(p, x, cfg, backend)
+    y = rms_norm(y, p["norm"], cfg.norm_eps) + xc
+    y = y * F.silu(z)
+    return (y @ p["w_down"].to(y.dtype)).to(x.dtype)
+
+
+def mlstm_block_prefill(p: dict, x: Tensor, cfg: ArchConfig,
+                        backend: Backend) -> Tuple[Tensor, dict]:
+    """The decode step run over the prompt from the zero state, hoisted:
+    outputs (B,S,D) with the decode step's cast of the cell output to x's
+    dtype before the norm, and the final state."""
+    y, xm, xc, z, (c, n, m) = _mlstm_sequence(p, x, cfg, backend)
+    y = rms_norm(y.to(x.dtype), p["norm"], cfg.norm_eps) + xc
+    y = y * F.silu(z)
+    state = {"conv": conv_tail(xm, cfg.recurrent.conv_width), "c": c,
+             "n": n, "m": m}
+    return y @ p["w_down"], state
+
+
+def mlstm_block_decode(p: dict, x: Tensor, state: dict, cfg: ArchConfig
+                       ) -> Tuple[Tensor, dict]:
+    """x: (B,1,D); state: {conv (B,K-1,di), c, n, m}."""
+    b = x.shape[0]
+    h = _xlstm_heads(cfg)
+    xm, z = (x @ p["w_up"])[:, 0].chunk(2, dim=-1)
+    conv_state, xc = fc.fuse_conv1d_temporal_step(state["conv"], xm,
+                                                  p["conv"])
+    xc = F.silu(xc)
+    q = (xc @ p["wq"]).reshape(b, h, -1)
+    k = (xc @ p["wk"]).reshape(b, h, -1)
+    v = (xm @ p["wv"]).reshape(b, h, -1)
+    gates = (xc @ p["w_if"]).reshape(b, 2, h)
+    (c, n, m), y = _mlstm_step(
+        (state["c"], state["n"], state["m"]),
+        *_mlstm_cell_inputs(q, k, v, gates[:, 0], gates[:, 1]))
+    y = rms_norm(y.reshape(b, -1).to(x.dtype), p["norm"], cfg.norm_eps) + xc
+    y = y * F.silu(z)
+    return (y @ p["w_down"])[:, None, :], \
+        {"conv": conv_state, "c": c, "n": n, "m": m}
+
+
+def mlstm_init_state(batch: int, cfg: ArchConfig, dtype, device=None
+                     ) -> dict:
+    di = 2 * cfg.d_model
+    h = _xlstm_heads(cfg)
+    dh = di // h
+    kw = dict(device=device)
+    return {"conv": torch.zeros((batch, cfg.recurrent.conv_width - 1, di),
+                                dtype=dtype, **kw),
+            "c": torch.zeros((batch, h, dh, dh), **kw),
+            "n": torch.zeros((batch, h, dh), **kw),
+            "m": torch.full((batch, h), -math.inf, **kw)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory, exponential gating, recurrent h-dependence).
+# ---------------------------------------------------------------------------
+
+def init_slstm_block(generator: torch.Generator, cfg: ArchConfig, dtype,
+                     device=None) -> dict:
+    rc: RecurrentConfig = cfg.recurrent
+    d = cfg.d_model
+    h = _xlstm_heads(cfg)
+    dff = int(d * 4 / 3)
+    kw = dict(device=device)
+    return {
+        "conv": dense_init(generator, (rc.conv_width, d), dtype, **kw),
+        "w_gates": dense_init(generator, (d, 4 * d), dtype, **kw),  # i,f,z,o
+        "r_gates": init_blockdiag(generator, 4 * d, 4 * h, dtype, **kw),
+        "norm": torch.zeros((d,), dtype=dtype, **kw),
+        "ffn_wi": dense_init(generator, (d, dff), dtype, **kw),
+        "ffn_wg": dense_init(generator, (d, dff), dtype, **kw),
+        "ffn_wo": dense_init(generator, (dff, d), dtype, **kw),
+    }
+
+
+def _slstm_step(p: dict, carry: Tuple[Tensor, ...], xt: Tensor
+                ) -> Tuple[Tensor, ...]:
+    """One sLSTM step in fp32: carry (c, n, m, h) (B,D) each, xt the
+    gates' input projection (B,4D).  Returns the new carry."""
+    c, n, m, h_prev = carry
+    pre = xt + blockdiag_apply(p["r_gates"].float(), h_prev.repeat(1, 4))
+    i_t, f_t, z_t, o_t = pre.chunk(4, dim=-1)
+    f_log = F.logsigmoid(f_t)
+    m_new = torch.maximum(f_log + m, i_t)
+    i_p = torch.exp(i_t - m_new)
+    f_p = torch.exp(f_log + m - m_new)
+    c = f_p * c + i_p * torch.tanh(z_t)
+    n = f_p * n + i_p
+    h = torch.sigmoid(o_t) * c / torch.clamp(n, min=1e-6)
+    return c, n, m_new, h
+
+
+def _slstm_out(p: dict, h: Tensor, cfg: ArchConfig, dtype) -> Tensor:
+    """The cell output cast to the model dtype, normed, through the gated
+    FFN."""
+    y = rms_norm(h.to(dtype), p["norm"], cfg.norm_eps)
+    return (gelu(y @ p["ffn_wg"]) * (y @ p["ffn_wi"])) @ p["ffn_wo"]
+
+
+def slstm_block_prefill(p: dict, x: Tensor, cfg: ArchConfig,
+                        backend: Backend) -> Tuple[Tensor, dict]:
+    """The block over a sequence from the zero state: the conv (one
+    ``fuse1d`` launch on ``cuda``) and the gates' projection hoisted, the
+    cell step by step.  Returns the outputs (B,S,D) and the final state.
+    The reference's forward and decode step cast alike, so this is also
+    the forward."""
+    b, s, d = x.shape
+    xc = F.silu(temporal_conv(x, p["conv"], backend))
+    pre = (xc @ p["w_gates"]).float()                       # (B,S,4D)
+    z0 = torch.zeros((b, d), device=x.device)
+    carry = (z0, z0, torch.full((b, d), -math.inf, device=x.device), z0)
+    hs = []
+    for t in range(s):
+        carry = _slstm_step(p, carry, pre[:, t])
+        hs.append(carry[3])
+    c, n, m, h = carry
+    state = {"conv": conv_tail(x, cfg.recurrent.conv_width), "c": c,
+             "n": n, "m": m, "h": h}
+    return _slstm_out(p, torch.stack(hs, 1), cfg, x.dtype), state
+
+
+def slstm_block_forward(p: dict, x: Tensor, cfg: ArchConfig,
+                        backend: Backend) -> Tensor:
+    return slstm_block_prefill(p, x, cfg, backend)[0]
+
+
+def slstm_block_decode(p: dict, x: Tensor, state: dict, cfg: ArchConfig
+                       ) -> Tuple[Tensor, dict]:
+    """x: (B,1,D); state: {conv (B,K-1,D), c, n, m, h}."""
+    conv_state, xc = fc.fuse_conv1d_temporal_step(state["conv"], x[:, 0],
+                                                  p["conv"])
+    pre = (F.silu(xc) @ p["w_gates"]).float()
+    c, n, m, h = _slstm_step(
+        p, (state["c"], state["n"], state["m"], state["h"]), pre)
+    y = _slstm_out(p, h, cfg, x.dtype)
+    return y[:, None, :], {"conv": conv_state, "c": c, "n": n, "m": m,
+                           "h": h}
+
+
+def slstm_init_state(batch: int, cfg: ArchConfig, dtype, device=None
+                     ) -> dict:
+    d = cfg.d_model
+    kw = dict(device=device)
+    return {"conv": torch.zeros((batch, cfg.recurrent.conv_width - 1, d),
+                                dtype=dtype, **kw),
+            "c": torch.zeros((batch, d), **kw),
+            "n": torch.zeros((batch, d), **kw),
+            "m": torch.full((batch, d), -math.inf, **kw),
+            "h": torch.zeros((batch, d), **kw)}

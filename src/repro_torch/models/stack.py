@@ -7,11 +7,16 @@ stacked on a leading axis, as in the reference, and the model walks that
 axis in a Python loop where the reference scans.  Layer kinds ported:
 
   attn   causal self-attention (GQA) + dense FFN
+  cross  cross-attention over a memory, tanh-gated (VLM-style) + FFN
+  dec    decoder layer: self-attention, cross-attention, FFN (enc-dec)
+  enc    non-causal self-attention + FFN (encoder)
   rec    RG-LRU recurrent block + dense FFN
+  xm/xs  xLSTM mLSTM / sLSTM blocks (self-contained)
 
-The other kinds raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.  ``ctx`` carries ``positions``, ``window`` and the
-``backend`` that picks the temporal conv's path.
+MoE FFNs and MLA attention raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.  ``ctx`` carries ``positions``, ``window``,
+the ``backend`` that picks the temporal conv's path and, for ``cross``
+and ``dec``, the ``memory`` (B, M, D) and its length ``memory_len``.
 """
 from __future__ import annotations
 
@@ -19,7 +24,6 @@ import dataclasses
 from typing import List, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_lib
@@ -29,27 +33,26 @@ from repro_torch.models.config import ArchConfig
 
 Tensor = torch.Tensor
 
-# kinds (and features) the port does not serve yet -> the ROADMAP item
+KINDS = ("attn", "cross", "dec", "enc", "rec", "xm", "xs")
+
+# features the port does not serve yet -> the ROADMAP item
 NOT_PORTED = {
-    "xm": "ROADMAP Queue 1 item 9.2 (xLSTM blocks)",
-    "xs": "ROADMAP Queue 1 item 9.2 (xLSTM blocks)",
     "moe": "ROADMAP Queue 1 item 9.3 (MoE and MLA)",
     "mla": "ROADMAP Queue 1 item 9.3 (MoE and MLA)",
-    "cross": "ROADMAP Queue 1 item 9.4 (cross, decoder and encoder layers)",
-    "dec": "ROADMAP Queue 1 item 9.4 (cross, decoder and encoder layers)",
-    "enc": "ROADMAP Queue 1 item 9.4 (cross, decoder and encoder layers)",
 }
 
 
 def check_ported(kind: str, cfg: ArchConfig, use_moe: bool) -> None:
     """Raise ``NotImplementedError`` for a layer the port does not run."""
-    for key, missing in ((kind, kind not in ("attn", "rec")),
-                         ("moe", use_moe),
-                         ("mla", kind == "attn" and cfg.attn_kind == "mla")):
+    if kind not in KINDS:
+        raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
+    for key, missing in (("moe", use_moe),
+                         ("mla", kind in ("attn", "enc")
+                          and cfg.attn_kind == "mla")):
         if missing:
             raise NotImplementedError(
-                f"{cfg.name}: layer kind {key!r} is not ported yet: "
-                f"{NOT_PORTED.get(key, 'no ROADMAP item')}")
+                f"{cfg.name}: layer kind {kind!r} with {key} is not ported "
+                f"yet: {NOT_PORTED[key]}")
 
 
 # ---------------------------------------------------------------------------
@@ -108,30 +111,91 @@ def init_layer(generator: torch.Generator, kind: str, cfg: ArchConfig,
     check_ported(kind, cfg, use_moe)
     d = cfg.d_model
 
-    def zeros():
-        return torch.zeros((d,), dtype=dtype, device=device)
+    def zeros(shape=(d,)):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    block = (attn.init_gqa(generator, cfg, dtype, device) if kind == "attn"
-             else rec_lib.init_rglru_block(generator, cfg, dtype, device))
-    return {"ln1": zeros(), kind: block, "ln2": zeros(),
-            "ffn": ffn_lib.init_mlp(generator, d, cfg.d_ff, dtype, cfg.act,
-                                    device)}
+    def gqa():
+        return attn.init_gqa(generator, cfg, dtype, device)
+
+    def mlp():
+        return ffn_lib.init_mlp(generator, d, cfg.d_ff, dtype, cfg.act,
+                                device)
+
+    if kind in ("attn", "enc"):
+        return {"ln1": zeros(), "attn": gqa(), "ln2": zeros(), "ffn": mlp()}
+    if kind == "cross":
+        return {"ln1": zeros(), "xattn": gqa(), "gate_attn": zeros(()),
+                "ln2": zeros(), "ffn": mlp(), "gate_ffn": zeros(())}
+    if kind == "dec":
+        return {"ln1": zeros(), "attn": gqa(), "ln2": zeros(),
+                "xattn": gqa(), "ln3": zeros(), "ffn": mlp()}
+    if kind == "rec":
+        return {"ln1": zeros(),
+                "rec": rec_lib.init_rglru_block(generator, cfg, dtype,
+                                                device),
+                "ln2": zeros(), "ffn": mlp()}
+    init = (rec_lib.init_mlstm_block if kind == "xm"
+            else rec_lib.init_slstm_block)
+    return {"ln": zeros(), "blk": init(generator, cfg, dtype, device)}
 
 
-def _ffn_residual(p: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+def _ffn_residual(p: dict, x: Tensor, cfg: ArchConfig, norm: str = "ln2"
+                  ) -> Tensor:
+    h = rms_norm(x, p[norm], cfg.norm_eps)
     return x + ffn_lib.mlp_forward(p["ffn"], h, cfg.act)
+
+
+def _memory_layer(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
+                  ctx: dict) -> Tuple[Tensor, dict]:
+    """A ``cross`` or ``dec`` layer over ``ctx["memory"]``, and its cache
+    entry: the memory's keys and values ``xk``, ``xv`` (computed once) and,
+    for ``dec``, the self-attention's ``k`` (roped) and ``v``."""
+    xk, xv = attn.memory_kv(p["xattn"], ctx["memory"], cfg)
+    cache = {"xk": xk, "xv": xv}
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "cross":
+        h = attn.attend(p["xattn"], attn.query(p["xattn"], h, cfg), xk, xv,
+                        cfg, causal=False)
+        x = x + torch.tanh(p["gate_attn"]) * h
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + torch.tanh(p["gate_ffn"]) * ffn_lib.mlp_forward(
+            p["ffn"], h, cfg.act), cache
+    q, k, v = attn.qkv(p["attn"], h, ctx["positions"], cfg)
+    x = x + attn.attend(p["attn"], q, k, v, cfg, causal=True)
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + attn.attend(p["xattn"], attn.query(p["xattn"], h, cfg), xk, xv,
+                        cfg, causal=False)
+    cache.update(k=k, v=v)
+    return _ffn_residual(p, x, cfg, "ln3"), cache
+
+
+# the mLSTM (xm) and sLSTM (xs) blocks' functions
+_XLSTM = {
+    "xm": dict(forward=rec_lib.mlstm_block_forward,
+               prefill=rec_lib.mlstm_block_prefill,
+               decode=rec_lib.mlstm_block_decode),
+    "xs": dict(forward=rec_lib.slstm_block_forward,
+               prefill=rec_lib.slstm_block_prefill,
+               decode=rec_lib.slstm_block_decode),
+}
 
 
 def layer_forward(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
                   use_moe: bool, ctx: dict) -> Tensor:
     check_ported(kind, cfg, use_moe)
+    if kind in ("cross", "dec"):
+        return _memory_layer(p, x, kind, cfg, ctx)[0]
+    if kind in ("xm", "xs"):
+        return x + _XLSTM[kind]["forward"](
+            p["blk"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+            ctx["backend"])
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "attn":
-        h = attn.gqa_forward(p["attn"], h, ctx["positions"], cfg,
-                             window=ctx.get("window"))
-    else:
+    if kind == "rec":
         h = rec_lib.rglru_block_forward(p["rec"], h, cfg, ctx["backend"])
+    else:
+        h = attn.gqa_forward(p["attn"], h, ctx["positions"], cfg,
+                             window=ctx.get("window"),
+                             causal=(kind == "attn"))
     return _ffn_residual(p, x + h, cfg)
 
 
@@ -141,32 +205,36 @@ def layer_forward(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
 
 def layer_prefill(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
                   use_moe: bool, ctx: dict) -> Tuple[Tensor, dict]:
-    """Same computation as layer_forward + returns the filled cache entry."""
+    """Same computation as layer_forward + returns the filled cache entry
+    (``xm``/``xs``: the decode step's outputs and final state, which the
+    reference gets by scanning the decode step over the prompt)."""
     check_ported(kind, cfg, use_moe)
-    b, s, _ = x.shape
+    if kind in ("cross", "dec"):
+        return _memory_layer(p, x, kind, cfg, ctx)
+    if kind in ("xm", "xs"):
+        y, state = _XLSTM[kind]["prefill"](
+            p["blk"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
+            ctx["backend"])
+        return x + y, state
+    if kind == "enc":
+        raise ValueError("an encoder layer has no decode cache")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "attn":
         q, k, v = attn.qkv(p["attn"], h, ctx["positions"], cfg)
-        out = attn.blockwise_attention(q, k, v, causal=True,
-                                       window=ctx.get("window"),
-                                       q_chunk=cfg.attn_q_chunk,
-                                       kv_chunk=cfg.attn_kv_chunk)
-        x = _ffn_residual(p, x + out.reshape(b, s, -1) @ p["attn"]["wo"],
-                          cfg)
         window = ctx.get("window")
-        if window and s >= window:
+        x = _ffn_residual(p, x + attn.attend(p["attn"], q, k, v, cfg,
+                                             causal=True, window=window),
+                          cfg)
+        if window and k.shape[1] >= window:
             k, v = k[:, -window:], v[:, -window:]
         return x, {"k": k, "v": v}
     rp = p["rec"]
     gate, u = rec_lib.rglru_branches(rp, h)
-    cw = cfg.recurrent.conv_width
-    conv_tail = u[:, -(cw - 1):, :]
-    if s < cw - 1:
-        conv_tail = F.pad(u, (0, 0, cw - 1 - s, 0))
     uc = rec_lib.temporal_conv(u, rp["conv"], ctx["backend"])
     hs = rec_lib.rglru_scan(rp, uc)
     x = _ffn_residual(p, x + (hs * gate) @ rp["w_out"], cfg)
-    return x, {"conv": conv_tail, "h": hs[:, -1].float()}
+    return x, {"conv": rec_lib.conv_tail(u, cfg.recurrent.conv_width),
+               "h": hs[:, -1].float()}
 
 
 # ---------------------------------------------------------------------------
@@ -176,22 +244,60 @@ def layer_prefill(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
 def init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                      dtype, ctx: dict, device=None) -> dict:
     check_ported(kind, cfg, False)
+    hd, kh = cfg.head_dim, cfg.num_kv_heads
+
+    def zeros(s):
+        return torch.zeros((batch, s, kh, hd), dtype=dtype, device=device)
+
+    if kind in ("cross", "dec"):
+        m = ctx["memory_len"]
+        cache = {"xk": zeros(m), "xv": zeros(m)}
+        if kind == "dec":
+            cache.update(k=zeros(max_seq), v=zeros(max_seq))
+        return cache
     if kind == "attn":
-        hd, kh = cfg.head_dim, cfg.num_kv_heads
         window = ctx.get("window")
         s = min(max_seq, window) if window else max_seq
-        return {"k": torch.zeros((batch, s, kh, hd), dtype=dtype,
-                                 device=device),
-                "v": torch.zeros((batch, s, kh, hd), dtype=dtype,
-                                 device=device)}
-    return rec_lib.rglru_init_state(batch, cfg, dtype, device)
+        return {"k": zeros(s), "v": zeros(s)}
+    if kind == "rec":
+        return rec_lib.rglru_init_state(batch, cfg, dtype, device)
+    if kind == "xm":
+        return rec_lib.mlstm_init_state(batch, cfg, dtype, device)
+    if kind == "xs":
+        return rec_lib.slstm_init_state(batch, cfg, dtype, device)
+    raise ValueError("an encoder layer has no decode cache")
+
+
+def _memory_decode(p: dict, x: Tensor, cache: dict, cfg: ArchConfig,
+                   ctx: dict) -> Tensor:
+    """One token's attention over the cached memory keys and values."""
+    out = attn.decode_attention(attn.query(p, x, cfg), cache["xk"],
+                                cache["xv"], ctx["memory_len"])
+    return out.reshape(x.shape[0], 1, -1) @ p["wo"]
 
 
 def layer_decode(p: dict, x: Tensor, cache: dict, kind: str,
                  cfg: ArchConfig, use_moe: bool, pos: int, ctx: dict
                  ) -> Tuple[Tensor, dict]:
     check_ported(kind, cfg, use_moe)
+    if kind in ("xm", "xs"):
+        h, cache = _XLSTM[kind]["decode"](
+            p["blk"], rms_norm(x, p["ln"], cfg.norm_eps), cache, cfg)
+        return x + h, cache
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "cross":
+        x = x + torch.tanh(p["gate_attn"]) * _memory_decode(
+            p["xattn"], h, cache, cfg, ctx)
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + torch.tanh(p["gate_ffn"]) * ffn_lib.mlp_forward(
+            p["ffn"], h, cfg.act), cache
+    if kind == "dec":
+        h, self_cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg)
+        cache = {**cache, **self_cache}
+        x = x + h
+        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        x = x + _memory_decode(p["xattn"], h, cache, cfg, ctx)
+        return _ffn_residual(p, x, cfg, "ln3"), cache
     if kind == "attn":
         window = ctx.get("window")
         if window and cache["k"].shape[1] <= window:
@@ -200,8 +306,10 @@ def layer_decode(p: dict, x: Tensor, cache: dict, kind: str,
         else:
             h, cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg,
                                        window=window)
-    else:
+    elif kind == "rec":
         h, cache = rec_lib.rglru_block_decode(p["rec"], h, cache, cfg)
+    else:
+        raise ValueError("an encoder layer has no decode step")
     return _ffn_residual(p, x + h, cfg), cache
 
 

@@ -4,13 +4,18 @@ Port of ``repro.serving.engine``.  Prefill emits exact per-layer caches
 (attention K/V, recurrent states); ``_align_cache`` pads them into
 fixed-size decode buffers:
 
-  * full-attention K/V: left-aligned in a (B, max_seq, ...) buffer —
-    decode writes at ``pos`` and masks ``[0, pos)``;
+  * full-attention K/V (``attn``, and ``dec``'s self-attention):
+    left-aligned in a (B, max_seq, ...) buffer — decode writes at ``pos``
+    and masks ``[0, pos)``;
   * sliding-window K/V: RIGHT-aligned in a (B, window, ...) rolling buffer;
-  * recurrent states: carried as-is.
+  * recurrent states (RG-LRU, mLSTM, sLSTM) and the memory's K/V
+    (``xk``, ``xv``, computed once at prefill): carried as-is.
 
 The engine batches requests into fixed slots (padded), runs one prefill,
-then steps the decode, all under ``torch.inference_mode()``.  The
+then steps the decode, all under ``torch.inference_mode()``.  ``extras``
+go to every prefill and decode call, as in the reference: the memory's
+embeddings (``memory_embeds`` or ``vision_embeds``, one row per slot) and
+optionally its length ``memory_len``.  The
 reference's ``policy`` (a ``ShardingPolicy``) belongs to
 ``launch/sharding.py``, which is not ported: only ``None`` is accepted.
 ``_prefill`` and ``_decode`` are the model's calls, kept as attributes as
@@ -50,11 +55,13 @@ class ServeEngine:
         self.params = params
         self.max_seq = max_seq
         self.slots = batch_slots
-        self.extras = extras or {}
+        self.extras = extras = extras or {}
         self.device = params["embed"].device
+        # the closures hold the model and extras, not the engine: an engine
+        # dropped is freed at once, with its parameters (a reference cycle
+        # would hold them on the card until the garbage collector runs)
         self._prefill = lambda p, t, ex: model.prefill(p, t, ex)
-        self._decode = lambda p, t, c: model.decode_step(p, t, c,
-                                                         self.extras)
+        self._decode = lambda p, t, c: model.decode_step(p, t, c, extras)
 
     # -- cache alignment ---------------------------------------------------------
     def _align_entry(self, kind_key: str, arr, prefill_len: int):
@@ -66,7 +73,7 @@ class ServeEngine:
                 return F.pad(arr, (0, 0, 0, 0, pad, 0))
             pad = self.max_seq - s    # left-align absolute buffer
             return F.pad(arr, (0, 0, 0, 0, 0, pad))
-        return arr                    # recurrent states
+        return arr                    # recurrent states, memory K/V
 
     def _align_cache(self, cache: PyTree, prefill_len: int) -> PyTree:
         def walk(path, leaf):

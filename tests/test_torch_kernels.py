@@ -18,7 +18,9 @@ every edge of their tilings, with a bitwise repeat and one launch per
 call.  They skip where there is no card.
 ``test_matmul_tiling_fits_the_card`` checks the SGEMM's tile picker on the
 CPU.  ``test_fuse_temporal_on_gpu`` holds the LM stack's temporal form of
-``fuse1d`` (float32 and bfloat16) to its plain version on the card.
+``fuse1d`` (float32 and bfloat16, causal and centred; RecurrentGemma's,
+xLSTM's and the Whisper FuSe stem's shapes) to its plain version on the
+card.
 """
 import numpy as np
 import pytest
@@ -790,12 +792,18 @@ def test_nos_hybrid_shapes_on_gpu():
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "centred"])
 @pytest.mark.parametrize("b,t,c,k", [(4, 512, 2560, 4), (3, 5, 13, 4),
                                      (2, 2, 16, 5), (2, 9, 12, 3),
-                                     (1, 7, 8, 1), (2, 6, 24, 6)])
+                                     (1, 7, 8, 1), (2, 6, 24, 6),
+                                     (4, 3000, 384, 3), (4, 64, 1536, 4),
+                                     (4, 64, 768, 4), (2, 1, 768, 4),
+                                     (2, 2, 1536, 4)])
 def test_fuse_temporal_on_gpu(b, t, c, k, causal, dtype):
     """The temporal form (one launch of the stage kernel's row bank over
     (B, T, 1, C) with the causal or centred halo) against its plain
-    version: RG-2B's prefill shape, a ragged width (VEC 1), T < K-1, and
-    widths that take bf16's 8-wide vectors or fall back.  float32 within
+    version: RG-2B's prefill shape, the Whisper FuSe stem's banks (K3
+    centred over 3000 frames of 384 channels), the xLSTM front ends (K4
+    causal over 1536 and 768 channels, also at T = 1 and 2 < K-1), a
+    ragged width (VEC 1), T < K-1, and widths that take bf16's 8-wide
+    vectors or fall back.  float32 within
     1e-4 of the scale; bfloat16 within one bf16 step (2^-7 of the scale),
     and in fact bitwise, since a bf16 x bf16 product is exact in fp32."""
     if not torch.cuda.is_available():

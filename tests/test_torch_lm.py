@@ -34,34 +34,10 @@ from repro_torch.models import model as tmodel
 from repro_torch.models import stack as tstack
 from repro_torch.serving import engine as tengine
 
+from _torch_params import numpy_lm_params
+
 ARCHS = ("recurrentgemma_2b", "smollm_135m")
 TOL = 1e-4
-
-
-def numpy_lm_params(cfg, seed=0):
-    """Seeded numpy values in the reference tree: matrices scaled by
-    1/sqrt(fan-in), norm scales 0.1 * N(0, 1), ``lam`` uniform in [0.5, 4],
-    temporal conv taps 0.5 * N(0, 1)."""
-    shapes = jax.eval_shape(
-        lambda: jmodel.LanguageModel(cfg).init(jax.random.PRNGKey(0)))
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        shape = tuple(leaf.shape)
-        name = str(path[-1].key) if hasattr(path[-1], "key") else ""
-        if name == "lam":
-            v = rng.uniform(0.5, 4.0, shape)
-        elif name == "conv":
-            v = rng.standard_normal(shape) * 0.5
-        elif name in ("ln1", "ln2", "final_norm"):
-            v = 0.1 * rng.standard_normal(shape)
-        elif name == "embed":
-            v = rng.standard_normal(shape) / np.sqrt(shape[-1])
-        else:       # (superblocks, fan-in..., fan-out)
-            v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:-1]))
-        return np.asarray(v, np.float32).astype(leaf.dtype)
-
-    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def _cfg(arch, **kw):
@@ -212,14 +188,37 @@ def test_init_tree_matches_reference_shapes(arch, dtype):
 
 
 def test_unported_kinds_raise_with_their_roadmap_item():
-    for arch, item in (("xlstm_125m", "9.2"), ("qwen3_moe_235b", "9.3"),
-                       ("deepseek_v2_236b", "9.3"), ("whisper_tiny", "9.4"),
-                       ("llama32_vision_90b", "9.4")):
+    """MoE and MLA (item 9.3) raise at init and at every later call; a
+    sharding policy (item 9.5) at the engine."""
+    for arch in ("qwen3_moe_235b", "deepseek_v2_236b"):
         m = tmodel.build_model(TC.get_smoke_config(arch))
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="9.3"):
             m.init(torch.Generator().manual_seed(0), device="cpu")
+        with pytest.raises(NotImplementedError, match="9.3"):
+            m.init_cache(1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="9.5"):
         tengine.ServeEngine(None, {}, policy=object())
+
+
+def test_a_dropped_engine_frees_its_parameters_without_the_collector():
+    """No reference cycle through the engine's prefill and decode
+    closures: dropping the last reference frees the parameters at once
+    (on the card, gigabytes that would stay allocated until a collection
+    and inflate the next model's peak memory)."""
+    import gc
+    import weakref
+    _, _, tcfg, tp = _pair("smollm_135m")
+    params = dict(tp)
+    engine = tengine.ServeEngine(tmodel.build_model(tcfg), params,
+                                 max_seq=16, batch_slots=1)
+    engine.generate([tengine.Request([1, 2], 2)])
+    alive = weakref.ref(engine)
+    gc.disable()
+    try:
+        del engine
+        assert alive() is None
+    finally:
+        gc.enable()
 
 
 def test_convert_roundtrips_bfloat16():
