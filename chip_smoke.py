@@ -118,7 +118,26 @@ Phases (any failure exits non-zero, and no result line is printed):
             each within 1e-3 of the forward's logits' scale, one generate
             of 4 requests, no kernel launch.  Each model is freed before
             the next is drawn; last, the launcher must refuse ``--arch
-            whisper_tiny`` with one line.
+            whisper_tiny`` with one line;
+11. moe   — ``qwen3_moe_235b`` (GQA, 128 experts top-8) cut from 94 to 8
+            layers and ``deepseek_v2_236b`` (MLA, a dense layer 0, then 160
+            experts top-6 + 2 shared) cut from 60 to 6, at published
+            widths (about 42 GB of bf16 weights each), from the port's
+            seeded init: one ``ServeEngine.generate`` each in bf16 (phase
+            9's traffic), every logit finite, no kernel counter moved,
+            prefill and decode times, peak memory and the prefill's share
+            of dropped (token, slot) assignments printed.  Then each in
+            fp32 cut to 2 layers: (a) the forward's last position against
+            the prefill on its own tokens (the same groups and drops),
+            within ``KERNEL_RTOL``; (b) with the capacity at the group size
+            (nothing drops) a prefill of 64 and 16 decode steps (MLA's
+            absorbed decode over the engine-aligned latent cache) against
+            the forward over 80 tokens, within ``KERNEL_RTOL``; (c) the
+            same at the published capacity within the reference's MoE
+            tolerance (``MOE_DECODE_ATOL``, ``MOE_DECODE_RTOL``), the drops
+            on each side printed; (d) one MoE layer on 256 tokens against
+            a plain Python loop over its kept (token, slot) pairs.  Each
+            model is freed before the next is drawn.
 
 Then the temporal form of ``fuse1d`` at each (dtype, shape, form) the
 ``cuda`` generates of phases 9 and 10 and the FuSe stem launched it at
@@ -146,6 +165,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import math
@@ -1744,6 +1764,287 @@ def lm2_phase(seed: int, device="cuda", card="", smoke=False,
     return out
 
 
+# phase 11: the MoE and MLA models at published widths, depth cut so the
+# bf16 weights (about 42 GB each) fit one 80 GB card; the fp32 checks cut
+# them to 2 layers (DeepSeek: its dense layer 0 and one MoE layer)
+MOE_ARCHS = (("qwen3_moe_235b", 8), ("deepseek_v2_236b", 6))
+MOE_CHECK_LAYERS = 2
+MOE_TOKENS, MOE_PREFILL, MOE_CHECK_SEQ = 80, 64, 128
+MOE_LAYER_TOKENS = 256
+# prefill + decode against the forward at the published capacity: the
+# reference's own MoE tolerance (tests/test_decode_consistency.py:21-24),
+# elementwise |d| <= atol + rtol * |forward|; a prefill group and a
+# 4-token decode group drop different (token, slot) assignments
+MOE_DECODE_ATOL, MOE_DECODE_RTOL = 0.3, 0.1
+
+
+@contextlib.contextmanager
+def counted_routes():
+    """While active, every ``ffn.moe_route`` call appends (kept,
+    assignments) of its (token, slot) assignments to the yielded list, the
+    kept count as a device tensor (no synchronize inside a timed call)."""
+    from repro_torch.models import ffn
+    real, log = ffn.moe_route, []
+
+    def route(*args, **kw):
+        r = real(*args, **kw)
+        log.append((r.keep.sum(), r.keep.numel()))
+        return r
+
+    ffn.moe_route = route
+    try:
+        yield log
+    finally:
+        ffn.moe_route = real
+
+
+def dropped(log) -> tuple:
+    """(dropped, assignments) over the ``counted_routes`` entries."""
+    total = sum(n for _, n in log)
+    return total - sum(int(k) for k, _ in log), total
+
+
+def moe_consistency(model, params, tokens, sync):
+    """``model.forward`` over ``tokens`` (B, MOE_TOKENS) against a prefill
+    of the first MOE_PREFILL and teacher-forced decode steps over the
+    rest, the caches aligned by the engine (max_seq MOE_CHECK_SEQ).
+    Returns the (step, forward) logits pairs (0 = prefill), the forward's
+    and the prefill + decode's drops, and the decode ms per step."""
+    import torch
+    from repro_torch.serving.engine import ServeEngine
+    with torch.inference_mode():
+        with counted_routes() as fwd_log:
+            fwd = model.forward(params, tokens)
+        with counted_routes() as dec_log:
+            logits, cache = model.prefill(params, tokens[:, :MOE_PREFILL])
+            cache = ServeEngine(model, params, max_seq=MOE_CHECK_SEQ,
+                                batch_slots=tokens.shape[0])._align_cache(
+                cache, MOE_PREFILL)
+            pairs = [(logits.cpu(), fwd[:, MOE_PREFILL - 1].cpu())]
+            step_s = []
+            for t in range(MOE_PREFILL, tokens.shape[1]):
+                sync()
+                t0 = time.perf_counter()
+                logits, cache = model.decode_step(params, tokens[:, t],
+                                                  cache)
+                sync()
+                step_s.append(time.perf_counter() - t0)
+                pairs.append((logits.cpu(), fwd[:, t].cpu()))
+    return pairs, dropped(fwd_log), dropped(dec_log), step_s
+
+
+def moe_plain_layer(p, x, cfg, r):
+    """An independent plain top-k mixture of x (1, T, D) under the routing
+    ``r``: a Python loop over the kept (token, slot) pairs, each adding
+    gate x expert FFN of its token, plus the shared experts."""
+    import torch
+    from repro_torch.models.common import ACT
+    from repro_torch.models.ffn import mlp_forward
+    xt = x.reshape(-1, x.shape[-1])
+    gs = r.idx.shape[1]
+    out = torch.zeros_like(xt)
+    idx, gates = r.idx.tolist(), r.gates.tolist()
+    for g, n, k in r.keep.nonzero().tolist():
+        e, t = idx[g][n][k], g * gs + n
+        h = ACT[cfg.act](xt[t] @ p["wg"][e]) * (xt[t] @ p["wi"][e])
+        out[t] += gates[g][n][k] * (h @ p["wo"][e])
+    if cfg.moe.num_shared:
+        out += mlp_forward(p["shared"], xt, cfg.act)
+    return out.reshape(x.shape)
+
+
+def moe_run(arch: str, layers: int, seed: int, dev, sync, card, smoke,
+            prompt_lens, max_new) -> None:
+    """Phase 11, one model: ``arch`` at published width cut to ``layers``
+    in bf16, one ``ServeEngine.generate`` (4 requests of ``prompt_lens``
+    token ids, ``max_new`` new each, max_seq 1024): finite logits, no
+    kernel launched, prefill and decode times, peak memory, the prefill's
+    drop share.  Then in fp32 cut to 2 layers: (a) the forward's last
+    position on the prefill's own tokens against the prefill (the same
+    groups, so the same drops), within KERNEL_RTOL; (b) at capacity_factor
+    E / K (capacity = group size: nothing drops) a prefill of 64 and 16
+    decode steps against the forward over 80 tokens within KERNEL_RTOL;
+    (c) the same at the published capacity within the reference's MoE
+    tolerance; (d) one MoE layer on 256 tokens against ``moe_plain_layer``
+    within KERNEL_RTOL of its output's own scale (max|ref|)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import configs as C, tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import ffn
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    base = C.get_smoke_config(arch) if smoke else C.get_config(arch)
+    e = base.moe
+    label = f"moe {arch}"
+    rng = np.random.default_rng((seed, 12))
+    prompts = [rng.integers(0, base.vocab_size, n).tolist()
+               for n in prompt_lens]
+    tokens = torch.from_numpy(rng.integers(
+        0, base.vocab_size, (LM_SLOTS, MOE_TOKENS))).to(dev)
+    pre_tokens = torch.tensor([p[:min(prompt_lens)] for p in prompts],
+                              device=dev)
+
+    def n_bytes(params):
+        return sum(t.numel() * t.element_size()
+                   for t in tree.tree_leaves(params))
+
+    # -- bf16 generate at `layers` ------------------------------------------
+    cfg = dataclasses.replace(base, num_layers=layers, dtype="bfloat16")
+    n_moe = layers - e.first_dense_layers
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    nb = n_bytes(params)
+    print(f"{label}: width {cfg.d_model}, {cfg.num_heads} heads, "
+          f"{cfg.attn_kind}, {e.num_experts} experts top-{e.top_k} "
+          f"(d_expert {e.d_expert}, shared {e.num_shared}, capacity factor "
+          f"{e.capacity_factor}, group {e.group_size}), vocab "
+          f"{cfg.vocab_size}, cut to {layers} of {base.num_layers} layers "
+          f"({n_moe} MoE); parameters {nb} B in bf16, init "
+          f"{init_s:.2f} s; weights read once {nb / PEAK_BYTES_PER_S * 1e3:.3f}"
+          f" ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; {card}")
+    engine = ServeEngine(model, params, max_seq=LM_MAX_SEQ,
+                         batch_slots=LM_SLOTS)
+    with counted_routes() as log:
+        run = traced_generate(engine, [Request(p, max_new) for p in prompts],
+                              sync)
+    if any(run["counts"].values()):
+        raise SystemExit(f"{label}: kernels launched: {run['counts']}")
+    if [len(t) for t in run["tokens"]] != [max_new] * len(prompts) \
+            or not all(tuple(a.shape) == (LM_SLOTS, cfg.vocab_size)
+                       and bool(torch.isfinite(a).all())
+                       for a in run["prefill"] + run["decode"]):
+        raise SystemExit(f"{label}: the generate's token lists have lengths "
+                         f"{[len(t) for t in run['tokens']]}, or its logits "
+                         f"are not finite")
+    if len(log) != n_moe * (1 + len(run["decode"])):
+        raise SystemExit(f"{label}: {len(log)} routings, not {n_moe} per "
+                         f"call over {1 + len(run['decode'])} calls")
+    pre_drop, pre_all = dropped(log[:n_moe])
+    dec_drop, dec_all = dropped(log[n_moe:])
+    generate_rows(f"{label} bfloat16", {"cuda": run}, min(prompt_lens), card)
+    print(f"{label} bfloat16: prefill dropped {pre_drop} of {pre_all} "
+          f"(token, slot) assignments ({pre_drop / pre_all:.4%}) over "
+          f"{n_moe} MoE layers; decode steps dropped {dec_drop} of {dec_all}"
+          f"; every logit finite; launches {run['counts']}; first "
+          f"request's tokens {run['tokens'][0][:8]}...; {card}")
+    del engine, params, model, run, log
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- fp32 checks at MOE_CHECK_LAYERS --------------------------------------
+    cfg = dataclasses.replace(base, num_layers=MOE_CHECK_LAYERS,
+                              dtype="float32")
+    no_drop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        e, capacity_factor=e.num_experts / e.top_k))
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    kops.reset_launch_counts()
+    # (a) the prefill's own tokens: the same groups, so the same drops
+    with torch.inference_mode(), counted_routes() as log:
+        fwd = model.forward(params, pre_tokens)[:, -1].cpu()
+        n_fwd = len(log)
+        logits, _ = model.prefill(params, pre_tokens)
+        logits = logits.cpu()
+    same, _ = check_logits(f"{label} (a) forward's last position against "
+                           f"the prefill", [(fwd, logits)], KERNEL_RTOL,
+                           (LM_SLOTS, cfg.vocab_size))
+    drops_a = (dropped(log[:n_fwd]), dropped(log[n_fwd:]))
+    if drops_a[0] != drops_a[1]:
+        raise SystemExit(f"{label} (a): forward and prefill dropped "
+                         f"{drops_a}")
+    # (b) nothing drops: the absorbed decode and the aligned caches
+    pairs, fwd_d, dec_d, step_s = moe_consistency(
+        build_model(no_drop, "cuda"), params, tokens, sync)
+    if fwd_d[0] or dec_d[0]:
+        raise SystemExit(f"{label} (b): capacity factor "
+                         f"{no_drop.moe.capacity_factor} dropped {fwd_d} "
+                         f"(forward), {dec_d} (prefill + decode)")
+    nd_worst, nd_abs = check_logits(
+        f"{label} (b) no drops (0 = prefill, then each decode step, against "
+        f"the forward)", pairs, KERNEL_RTOL, (LM_SLOTS, cfg.vocab_size))
+    # (c) the published capacity
+    pairs, fwd_c, dec_c, _ = moe_consistency(model, params, tokens, sync)
+    worst, excess = 0.0, -math.inf
+    for a, b in pairs:
+        d = (a - b).abs()
+        worst = max(worst, d.max().item()
+                    / max(1.0, b.abs().max().item()))
+        excess = max(excess, (d - MOE_DECODE_ATOL - MOE_DECODE_RTOL
+                              * b.abs()).max().item())
+    if not all(bool(torch.isfinite(a).all()) for a, _ in pairs) \
+            or excess > 0:
+        raise SystemExit(f"{label} (c): published capacity, prefill + "
+                         f"decode against the forward: max|d| / scale "
+                         f"{worst:.3e}, |d| - (atol + rtol |ref|) up to "
+                         f"{excess:.3e} (atol {MOE_DECODE_ATOL}, rtol "
+                         f"{MOE_DECODE_RTOL}); drops forward {fwd_c}, "
+                         f"prefill + decode {dec_c}")
+    # (d) one MoE layer against the plain top-k mixture
+    p = tree.tree_map(lambda a: a[0], params["segments"][-1]["k0"]["ffn"])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(1, MOE_LAYER_TOKENS, cfg.d_model, generator=gen,
+                    device=dev)
+    with torch.inference_mode():
+        y = ffn.moe_forward(p, x, cfg)
+        r = ffn.moe_route(p, x, cfg)
+        ref = moe_plain_layer(p, x, cfg, r)
+    layer_scale = ref.abs().max().item()
+    layer_err = (y - ref).abs().max().item()
+    kept = int(r.keep.sum())
+    if not layer_err <= KERNEL_RTOL * layer_scale:
+        raise SystemExit(f"{label} (d): moe_forward is {layer_err:.3e} off "
+                         f"the plain mixture (scale {layer_scale:.3e}, "
+                         f"tolerance {KERNEL_RTOL} of it)")
+    if any(kops.launch_counts().values()):
+        raise SystemExit(f"{label}: kernels launched in the fp32 checks: "
+                         f"{kops.launch_counts()}")
+    dec_ms = sorted(step_s)[len(step_s) // 2] * 1e3
+    print(f"{label} float32 at {MOE_CHECK_LAYERS} layers ({n_bytes(params)} "
+          f"B): (a) forward's last position vs prefill on its tokens "
+          f"{same:.3e} of the scale (tolerance {KERNEL_RTOL}), drops "
+          f"{drops_a[0]} on both; (b) capacity factor "
+          f"{no_drop.moe.capacity_factor:.4g}, no drops: prefill "
+          f"{LM_SLOTS}x{MOE_PREFILL} + {len(step_s)} decode steps (median "
+          f"{dec_ms:.3f} ms) vs forward over {MOE_TOKENS}: {nd_worst:.3e} of "
+          f"the scale (max|d| {nd_abs:.3e}, tolerance {KERNEL_RTOL}); (c) "
+          f"published capacity: {worst:.3e} of the scale, |d| - (atol + "
+          f"rtol |ref|) at most {excess:.3e} (atol {MOE_DECODE_ATOL}, rtol "
+          f"{MOE_DECODE_RTOL}), dropped: forward {fwd_c[0]} of {fwd_c[1]}, "
+          f"prefill + decode {dec_c[0]} of {dec_c[1]}; (d) one MoE layer on "
+          f"{MOE_LAYER_TOKENS} tokens vs the plain loop over {kept} kept "
+          f"(token, slot) pairs: max|d| {layer_err:.3e}, scale "
+          f"{layer_scale:.3e} (tolerance {KERNEL_RTOL} of it); no kernel "
+          f"launched; {card}")
+    del params, model, fwd, pairs, p, x, y, ref, r
+
+
+def moe_phase(seed: int, device="cuda", card="", smoke=False,
+              prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW) -> None:
+    """Phase 11: ``moe_run`` for each of MOE_ARCHS, each model freed
+    before the next is drawn."""
+    import torch
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for arch, layers in MOE_ARCHS:
+        moe_run(arch, layers, seed, dev, sync, card, smoke, prompt_lens,
+                max_new)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    print(f"moe: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def zoo_report(pair_counts, rows, notes) -> dict:
     """Phase 3's zoo-wide report: each distinct bucket-8 shape's row, the
     sums Σ launches x ms, x bound and x library per (network, variant) and
@@ -2248,6 +2549,9 @@ def main() -> int:
     # -- 10. lm2 -------------------------------------------------------------
     lm2 = lm2_phase(args.seed, card=card)
     torch.cuda.empty_cache()
+
+    # -- 11. moe -------------------------------------------------------------
+    moe_phase(args.seed, card=card)
 
     # the temporal form's rows: each (dtype, shape, form) at which phases 9
     # and 10 launched fuse1d (the cuda generates' prefills, the FuSe stem

@@ -1,14 +1,19 @@
-"""Attention: GQA with blockwise (flash-style) softmax and the decode path.
+"""Attention: GQA with blockwise (flash-style) softmax, decode paths, and MLA.
 
-Port of the GQA half of ``repro.models.attention`` as plain PyTorch ops
-(the reference computes attention outside any Pallas kernel).
+Port of ``repro.models.attention`` as plain PyTorch ops (the reference
+computes attention outside any Pallas kernel).
 ``blockwise_attention`` walks q chunks and, inside each, KV chunks with a
 running max and denominator in fp32, as the reference's two ``lax.scan``
 loops do, so live scores stay O(q_chunk x kv_chunk).  Cross-attention
 (the reference's ``gqa_forward(kv_override=)``) is ``attend`` of
 ``query`` over ``memory_kv``: keys and values from a memory through ``wk``
 and ``wv``, without rope and without a causal mask.
-Multi-head latent attention (MLA) waits for ROADMAP Queue 1 item 9.3.
+Multi-head latent attention (MLA, DeepSeek-V2) compresses keys and values
+into a latent ``c_kv`` (B, S, kv_lora_rank) plus one shared roped key
+``k_rope`` (B, S, qk_rope_dim): the prefill expands the latent per head
+and runs ``blockwise_attention`` (Dk = nope + rope, Dv = v_head_dim, KH =
+H); the decode step keeps the cache latent and absorbs ``W_uk`` into the
+query and ``W_uv`` after the softmax, in fp32.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.config import ArchConfig
 
 Tensor = torch.Tensor
@@ -184,3 +189,106 @@ def gqa_decode(p: dict, x: Tensor, cache: dict, pos: int, cfg: ArchConfig,
     out = decode_attention(q, k_cache, v_cache, pos + 1, window=window)
     y = out.reshape(b, 1, -1) @ p["wo"]
     return y, {"k": k_cache, "v": v_cache}
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2).
+# ---------------------------------------------------------------------------
+
+def init_mla(generator: torch.Generator, cfg: ArchConfig, dtype,
+             device=None) -> dict:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+
+    def w(shape):
+        return dense_init(generator, shape, dtype, device=device)
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype, device=device)
+
+    return {"wdq": w((d, m.q_lora_rank)), "q_norm": zeros(m.q_lora_rank),
+            "wuq": w((m.q_lora_rank, h * qk)),
+            "wdkv": w((d, m.kv_lora_rank)),
+            "kv_norm": zeros(m.kv_lora_rank),
+            "wuk": w((m.kv_lora_rank, h * m.qk_nope_dim)),
+            "wuv": w((m.kv_lora_rank, h * m.v_head_dim)),
+            "wkr": w((d, m.qk_rope_dim)), "wo": w((h * m.v_head_dim, d))}
+
+
+def _mla_q(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
+           ) -> Tuple[Tensor, Tensor]:
+    """q_nope (B,S,H,nope) and the roped q_rope (B,S,H,rope)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    cq = rms_norm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(b, s, cfg.num_heads,
+                                m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    return q_nope, rope_lib.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def mla_latent(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
+               ) -> dict:
+    """The decode cache entry of x (B,S,D): the normed latent ``ckv``
+    (B,S,kv_lora_rank) and the shared roped key ``kr`` (B,S,qk_rope_dim)."""
+    return {"ckv": rms_norm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps),
+            "kr": rope_lib.apply_rope(x @ p["wkr"], positions,
+                                      cfg.rope_theta)}
+
+
+def mla_prefill(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
+                ) -> Tuple[Tensor, dict]:
+    """Full-sequence MLA (the latent expanded per head, causal blockwise
+    attention) and its ``mla_latent`` cache entry."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    lat = mla_latent(p, x, positions, cfg)
+    k_nope = (lat["ckv"] @ p["wuk"]).reshape(b, s, h, m.qk_nope_dim)
+    v = (lat["ckv"] @ p["wuv"]).reshape(b, s, h, m.v_head_dim)
+    k_rope = lat["kr"][:, :, None, :].expand(b, s, h, m.qk_rope_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope], dim=-1)
+    return attend(p, q, k, v, cfg, causal=True), lat
+
+
+def mla_forward(p: dict, x: Tensor, positions: Tensor, cfg: ArchConfig
+                ) -> Tensor:
+    """Training/prefill MLA: expand the latent per head, flash attention."""
+    return mla_prefill(p, x, positions, cfg)[0]
+
+
+def mla_decode(p: dict, x: Tensor, cache: dict, pos: int, cfg: ArchConfig
+               ) -> Tuple[Tensor, dict]:
+    """Absorbed-matmul decode: the cache stays in latent space (r + rope).
+
+    cache: {ckv: (B,S,r), kr: (B,S,dr)}; writes at pos (clamped as
+    ``dynamic_update_slice`` clamps it) and attends to [0, pos]."""
+    m = cfg.mla
+    b = x.shape[0]
+    h, r = cfg.num_heads, m.kv_lora_rank
+    positions = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)            # (B,1,H,*)
+    lat = mla_latent(p, x, positions, cfg)
+    at = min(pos, cache["ckv"].shape[1] - 1)
+    new = {}
+    for key in ("ckv", "kr"):
+        new[key] = cache[key].clone()
+        new[key][:, at:at + 1] = lat[key]
+    ckv = new["ckv"].float()
+    # absorb W_uk into q: q_eff (B,H,r)
+    wuk = p["wuk"].reshape(r, h, m.qk_nope_dim).float()
+    q_eff = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wuk)
+    s_lat = torch.einsum("bhr,bsr->bhs", q_eff, ckv)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                          new["kr"].float())
+    scores = (s_lat + s_rope) / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    mask = torch.arange(ckv.shape[1], device=x.device) < pos + 1
+    pattn = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", pattn, ckv)
+    wuv = p["wuv"].reshape(r, h, m.v_head_dim).float()
+    out = torch.einsum("bhr,rhd->bhd", ctx, wuv)
+    y = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return y, new

@@ -7,8 +7,9 @@ loop over that axis stands in for ``lax.scan`` (``remat`` and
 a ``Backend``: ``torch`` runs every op plainly, ``cuda`` puts the RG-LRU
 blocks' temporal FuSeConv on the hand ``fuse1d`` kernel (one launch per
 ``rec`` layer per ``forward`` or ``prefill``; a decode step launches none).
-The decode cache's ``pos`` is a Python int.  ``loss`` waits for LM training
-(ROADMAP Queue 1 item 9.5); encoder and vision memory for item 9.4.
+The MoE and MLA layers (``qwen3_moe_235b``, ``deepseek_v2_236b``) run no
+hand kernel on either backend.  The decode cache's ``pos`` is a Python
+int.  ``loss`` waits for LM training (ROADMAP Queue 1 item 9.5).
 """
 from __future__ import annotations
 
@@ -59,11 +60,12 @@ class LanguageModel:
     backend: Backend = TORCH
 
     def _check(self) -> List[S.Segment]:
-        """The segments, after refusing what the port does not run."""
+        """The segments, after refusing a layer kind the stack does not
+        know."""
         segs = S.plan_segments(self.cfg)
         for seg in segs:
             for kind in seg.kinds:
-                S.check_ported(kind, self.cfg, seg.use_moe)
+                S.check_ported(kind, self.cfg)
         return segs
 
     def _memory_len(self, extras: Optional[dict]) -> int:

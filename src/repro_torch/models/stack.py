@@ -4,19 +4,22 @@ Port of ``repro.models.stack``.  The per-layer pattern from
 ``ArchConfig.layer_pattern`` is grouped into repeating *superblocks* (e.g.
 RecurrentGemma's ("rec","rec","attn")); each group's parameters are
 stacked on a leading axis, as in the reference, and the model walks that
-axis in a Python loop where the reference scans.  Layer kinds ported:
+axis in a Python loop where the reference scans.  Layer kinds:
 
-  attn   causal self-attention (GQA) + dense FFN
+  attn   causal self-attention (GQA or MLA) + FFN (dense or MoE)
   cross  cross-attention over a memory, tanh-gated (VLM-style) + FFN
   dec    decoder layer: self-attention, cross-attention, FFN (enc-dec)
-  enc    non-causal self-attention + FFN (encoder)
-  rec    RG-LRU recurrent block + dense FFN
+  enc    non-causal self-attention + FFN (encoder; MLA stays causal, as in
+         the reference)
+  rec    RG-LRU recurrent block + FFN
   xm/xs  xLSTM mLSTM / sLSTM blocks (self-contained)
 
-MoE FFNs and MLA attention raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.  ``ctx`` carries ``positions``, ``window``,
-the ``backend`` that picks the temporal conv's path and, for ``cross``
-and ``dec``, the ``memory`` (B, M, D) and its length ``memory_len``.
+A segment's ``use_moe`` puts the MoE FFN in every FFN of its layers, and
+``cfg.attn_kind == "mla"`` puts MLA in ``attn`` and ``enc`` (whose decode
+cache is then the latent ``{"ckv", "kr"}``).  ``ctx`` carries
+``positions``, ``window``, the ``backend`` that picks the temporal conv's
+path and, for ``cross`` and ``dec``, the ``memory`` (B, M, D) and its
+length ``memory_len``.
 """
 from __future__ import annotations
 
@@ -35,24 +38,15 @@ Tensor = torch.Tensor
 
 KINDS = ("attn", "cross", "dec", "enc", "rec", "xm", "xs")
 
-# features the port does not serve yet -> the ROADMAP item
-NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 9.3 (MoE and MLA)",
-    "mla": "ROADMAP Queue 1 item 9.3 (MoE and MLA)",
-}
 
-
-def check_ported(kind: str, cfg: ArchConfig, use_moe: bool) -> None:
-    """Raise ``NotImplementedError`` for a layer the port does not run."""
+def check_ported(kind: str, cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for a layer kind the stack does not know."""
     if kind not in KINDS:
         raise ValueError(f"{cfg.name}: unknown layer kind {kind!r}")
-    for key, missing in (("moe", use_moe),
-                         ("mla", kind in ("attn", "enc")
-                          and cfg.attn_kind == "mla")):
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: layer kind {kind!r} with {key} is not ported "
-                f"yet: {NOT_PORTED[key]}")
+
+
+def _mla(cfg: ArchConfig, kind: str) -> bool:
+    return kind in ("attn", "enc") and cfg.attn_kind == "mla"
 
 
 # ---------------------------------------------------------------------------
@@ -108,7 +102,7 @@ def plan_segments(cfg: ArchConfig) -> List[Segment]:
 
 def init_layer(generator: torch.Generator, kind: str, cfg: ArchConfig,
                use_moe: bool, dtype, device=None) -> dict:
-    check_ported(kind, cfg, use_moe)
+    check_ported(kind, cfg)
     d = cfg.d_model
 
     def zeros(shape=(d,)):
@@ -118,11 +112,15 @@ def init_layer(generator: torch.Generator, kind: str, cfg: ArchConfig,
         return attn.init_gqa(generator, cfg, dtype, device)
 
     def mlp():
+        if use_moe:
+            return ffn_lib.init_moe(generator, cfg, dtype, device)
         return ffn_lib.init_mlp(generator, d, cfg.d_ff, dtype, cfg.act,
                                 device)
 
     if kind in ("attn", "enc"):
-        return {"ln1": zeros(), "attn": gqa(), "ln2": zeros(), "ffn": mlp()}
+        a = (attn.init_mla(generator, cfg, dtype, device) if _mla(cfg, kind)
+             else gqa())
+        return {"ln1": zeros(), "attn": a, "ln2": zeros(), "ffn": mlp()}
     if kind == "cross":
         return {"ln1": zeros(), "xattn": gqa(), "gate_attn": zeros(()),
                 "ln2": zeros(), "ffn": mlp(), "gate_ffn": zeros(())}
@@ -139,14 +137,20 @@ def init_layer(generator: torch.Generator, kind: str, cfg: ArchConfig,
     return {"ln": zeros(), "blk": init(generator, cfg, dtype, device)}
 
 
-def _ffn_residual(p: dict, x: Tensor, cfg: ArchConfig, norm: str = "ln2"
-                  ) -> Tensor:
+def _ffn(p: dict, h: Tensor, cfg: ArchConfig, use_moe: bool) -> Tensor:
+    if use_moe:
+        return ffn_lib.moe_forward(p, h, cfg)
+    return ffn_lib.mlp_forward(p, h, cfg.act)
+
+
+def _ffn_residual(p: dict, x: Tensor, cfg: ArchConfig, use_moe: bool,
+                  norm: str = "ln2") -> Tensor:
     h = rms_norm(x, p[norm], cfg.norm_eps)
-    return x + ffn_lib.mlp_forward(p["ffn"], h, cfg.act)
+    return x + _ffn(p["ffn"], h, cfg, use_moe)
 
 
 def _memory_layer(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
-                  ctx: dict) -> Tuple[Tensor, dict]:
+                  use_moe: bool, ctx: dict) -> Tuple[Tensor, dict]:
     """A ``cross`` or ``dec`` layer over ``ctx["memory"]``, and its cache
     entry: the memory's keys and values ``xk``, ``xv`` (computed once) and,
     for ``dec``, the self-attention's ``k`` (roped) and ``v``."""
@@ -158,15 +162,15 @@ def _memory_layer(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
                         cfg, causal=False)
         x = x + torch.tanh(p["gate_attn"]) * h
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + torch.tanh(p["gate_ffn"]) * ffn_lib.mlp_forward(
-            p["ffn"], h, cfg.act), cache
+        return x + torch.tanh(p["gate_ffn"]) * _ffn(p["ffn"], h, cfg,
+                                                    use_moe), cache
     q, k, v = attn.qkv(p["attn"], h, ctx["positions"], cfg)
     x = x + attn.attend(p["attn"], q, k, v, cfg, causal=True)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     x = x + attn.attend(p["xattn"], attn.query(p["xattn"], h, cfg), xk, xv,
                         cfg, causal=False)
     cache.update(k=k, v=v)
-    return _ffn_residual(p, x, cfg, "ln3"), cache
+    return _ffn_residual(p, x, cfg, use_moe, "ln3"), cache
 
 
 # the mLSTM (xm) and sLSTM (xs) blocks' functions
@@ -182,9 +186,9 @@ _XLSTM = {
 
 def layer_forward(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
                   use_moe: bool, ctx: dict) -> Tensor:
-    check_ported(kind, cfg, use_moe)
+    check_ported(kind, cfg)
     if kind in ("cross", "dec"):
-        return _memory_layer(p, x, kind, cfg, ctx)[0]
+        return _memory_layer(p, x, kind, cfg, use_moe, ctx)[0]
     if kind in ("xm", "xs"):
         return x + _XLSTM[kind]["forward"](
             p["blk"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
@@ -192,11 +196,13 @@ def layer_forward(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rec":
         h = rec_lib.rglru_block_forward(p["rec"], h, cfg, ctx["backend"])
+    elif _mla(cfg, kind):
+        h = attn.mla_forward(p["attn"], h, ctx["positions"], cfg)
     else:
         h = attn.gqa_forward(p["attn"], h, ctx["positions"], cfg,
                              window=ctx.get("window"),
                              causal=(kind == "attn"))
-    return _ffn_residual(p, x + h, cfg)
+    return _ffn_residual(p, x + h, cfg, use_moe)
 
 
 # ---------------------------------------------------------------------------
@@ -208,9 +214,9 @@ def layer_prefill(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
     """Same computation as layer_forward + returns the filled cache entry
     (``xm``/``xs``: the decode step's outputs and final state, which the
     reference gets by scanning the decode step over the prompt)."""
-    check_ported(kind, cfg, use_moe)
+    check_ported(kind, cfg)
     if kind in ("cross", "dec"):
-        return _memory_layer(p, x, kind, cfg, ctx)
+        return _memory_layer(p, x, kind, cfg, use_moe, ctx)
     if kind in ("xm", "xs"):
         y, state = _XLSTM[kind]["prefill"](
             p["blk"], rms_norm(x, p["ln"], cfg.norm_eps), cfg,
@@ -219,12 +225,15 @@ def layer_prefill(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
     if kind == "enc":
         raise ValueError("an encoder layer has no decode cache")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if _mla(cfg, kind):
+        y, latent = attn.mla_prefill(p["attn"], h, ctx["positions"], cfg)
+        return _ffn_residual(p, x + y, cfg, use_moe), latent
     if kind == "attn":
         q, k, v = attn.qkv(p["attn"], h, ctx["positions"], cfg)
         window = ctx.get("window")
         x = _ffn_residual(p, x + attn.attend(p["attn"], q, k, v, cfg,
                                              causal=True, window=window),
-                          cfg)
+                          cfg, use_moe)
         if window and k.shape[1] >= window:
             k, v = k[:, -window:], v[:, -window:]
         return x, {"k": k, "v": v}
@@ -232,7 +241,7 @@ def layer_prefill(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
     gate, u = rec_lib.rglru_branches(rp, h)
     uc = rec_lib.temporal_conv(u, rp["conv"], ctx["backend"])
     hs = rec_lib.rglru_scan(rp, uc)
-    x = _ffn_residual(p, x + (hs * gate) @ rp["w_out"], cfg)
+    x = _ffn_residual(p, x + (hs * gate) @ rp["w_out"], cfg, use_moe)
     return x, {"conv": rec_lib.conv_tail(u, cfg.recurrent.conv_width),
                "h": hs[:, -1].float()}
 
@@ -243,7 +252,7 @@ def layer_prefill(p: dict, x: Tensor, kind: str, cfg: ArchConfig,
 
 def init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                      dtype, ctx: dict, device=None) -> dict:
-    check_ported(kind, cfg, False)
+    check_ported(kind, cfg)
     hd, kh = cfg.head_dim, cfg.num_kv_heads
 
     def zeros(s):
@@ -255,6 +264,12 @@ def init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
         if kind == "dec":
             cache.update(k=zeros(max_seq), v=zeros(max_seq))
         return cache
+    if kind == "attn" and _mla(cfg, kind):
+        m = cfg.mla
+        return {key: torch.zeros((batch, max_seq, r), dtype=dtype,
+                                 device=device)
+                for key, r in (("ckv", m.kv_lora_rank),
+                               ("kr", m.qk_rope_dim))}
     if kind == "attn":
         window = ctx.get("window")
         s = min(max_seq, window) if window else max_seq
@@ -279,7 +294,7 @@ def _memory_decode(p: dict, x: Tensor, cache: dict, cfg: ArchConfig,
 def layer_decode(p: dict, x: Tensor, cache: dict, kind: str,
                  cfg: ArchConfig, use_moe: bool, pos: int, ctx: dict
                  ) -> Tuple[Tensor, dict]:
-    check_ported(kind, cfg, use_moe)
+    check_ported(kind, cfg)
     if kind in ("xm", "xs"):
         h, cache = _XLSTM[kind]["decode"](
             p["blk"], rms_norm(x, p["ln"], cfg.norm_eps), cache, cfg)
@@ -289,16 +304,18 @@ def layer_decode(p: dict, x: Tensor, cache: dict, kind: str,
         x = x + torch.tanh(p["gate_attn"]) * _memory_decode(
             p["xattn"], h, cache, cfg, ctx)
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
-        return x + torch.tanh(p["gate_ffn"]) * ffn_lib.mlp_forward(
-            p["ffn"], h, cfg.act), cache
+        return x + torch.tanh(p["gate_ffn"]) * _ffn(p["ffn"], h, cfg,
+                                                    use_moe), cache
     if kind == "dec":
         h, self_cache = attn.gqa_decode(p["attn"], h, cache, pos, cfg)
         cache = {**cache, **self_cache}
         x = x + h
         h = rms_norm(x, p["ln2"], cfg.norm_eps)
         x = x + _memory_decode(p["xattn"], h, cache, cfg, ctx)
-        return _ffn_residual(p, x, cfg, "ln3"), cache
-    if kind == "attn":
+        return _ffn_residual(p, x, cfg, use_moe, "ln3"), cache
+    if kind == "attn" and _mla(cfg, kind):
+        h, cache = attn.mla_decode(p["attn"], h, cache, pos, cfg)
+    elif kind == "attn":
         window = ctx.get("window")
         if window and cache["k"].shape[1] <= window:
             # rolling window cache: rotate then write at the end
@@ -310,7 +327,7 @@ def layer_decode(p: dict, x: Tensor, cache: dict, kind: str,
         h, cache = rec_lib.rglru_block_decode(p["rec"], h, cache, cfg)
     else:
         raise ValueError("an encoder layer has no decode step")
-    return _ffn_residual(p, x + h, cfg), cache
+    return _ffn_residual(p, x + h, cfg, use_moe), cache
 
 
 def _windowed_decode(p: dict, x: Tensor, cache: dict, pos: int,

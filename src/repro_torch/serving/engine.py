@@ -8,6 +8,7 @@ fixed-size decode buffers:
     left-aligned in a (B, max_seq, ...) buffer — decode writes at ``pos``
     and masks ``[0, pos)``;
   * sliding-window K/V: RIGHT-aligned in a (B, window, ...) rolling buffer;
+  * MLA's latent cache (``ckv``, ``kr``): left-aligned in (B, max_seq, r);
   * recurrent states (RG-LRU, mLSTM, sLSTM) and the memory's K/V
     (``xk``, ``xv``, computed once at prefill): carried as-is.
 
@@ -73,6 +74,9 @@ class ServeEngine:
                 return F.pad(arr, (0, 0, 0, 0, pad, 0))
             pad = self.max_seq - s    # left-align absolute buffer
             return F.pad(arr, (0, 0, 0, 0, 0, pad))
+        if kind_key in ("ckv", "kr"):
+            pad = self.max_seq - arr.shape[2]   # (n_super, B, S, r)
+            return F.pad(arr, (0, 0, 0, pad))   # left-aligned latent
         return arr                    # recurrent states, memory K/V
 
     def _align_cache(self, cache: PyTree, prefill_len: int) -> PyTree:

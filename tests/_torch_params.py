@@ -18,7 +18,8 @@ import numpy as np
 from repro.models import model as jmodel
 from repro.vision import zoo as jzoo
 
-NORMS = ("ln", "ln1", "ln2", "ln3", "norm", "final_norm", "enc_norm")
+NORMS = ("ln", "ln1", "ln2", "ln3", "norm", "final_norm", "enc_norm",
+         "q_norm", "kv_norm")
 
 
 def numpy_params(net, variant, seed=0):

@@ -37,6 +37,7 @@ from repro_torch.serving import engine as tengine
 from _torch_params import numpy_lm_params
 
 ARCHS = ("recurrentgemma_2b", "smollm_135m")
+MOE_ARCHS = ("qwen3_moe_235b", "deepseek_v2_236b")
 TOL = 1e-4
 
 
@@ -155,6 +156,8 @@ def test_registry_matches_reference(arch):
     assert tcfg.active_param_count() == jcfg.active_param_count()
     assert [dataclasses.astuple(s) for s in tstack.plan_segments(tcfg)] == \
         [dataclasses.astuple(s) for s in jstack.plan_segments(jcfg)]
+    # the port's model accepts every layer of the plan, MoE and MLA too
+    assert tmodel.build_model(tcfg)._check() == tstack.plan_segments(tcfg)
     assert dataclasses.asdict(TC.get_smoke_config(arch)) == \
         dataclasses.asdict(JC.get_smoke_config(arch))
     assert TC.ALIASES == JC.ALIASES and TC.list_configs() == JC.list_configs()
@@ -170,7 +173,7 @@ def test_production_recurrentgemma_plan():
     assert 2.6e9 < cfg.param_count() < 2.8e9
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_tree_matches_reference_shapes(arch, dtype):
     jcfg, tcfg = _cfg(arch, dtype=dtype)
@@ -188,16 +191,34 @@ def test_init_tree_matches_reference_shapes(arch, dtype):
 
 
 def test_unported_kinds_raise_with_their_roadmap_item():
-    """MoE and MLA (item 9.3) raise at init and at every later call; a
-    sharding policy (item 9.5) at the engine."""
-    for arch in ("qwen3_moe_235b", "deepseek_v2_236b"):
-        m = tmodel.build_model(TC.get_smoke_config(arch))
-        with pytest.raises(NotImplementedError, match="9.3"):
-            m.init(torch.Generator().manual_seed(0), device="cpu")
-        with pytest.raises(NotImplementedError, match="9.3"):
-            m.init_cache(1, 8, device="cpu")
+    """A sharding policy (item 9.5) raises at the engine and an unknown
+    layer kind at the model; the MoE and MLA models (item 9.3, ported)
+    build, ``init`` and ``init_cache``, DeepSeek's attention caches latent
+    ``ckv``/``kr`` of the reference's shapes."""
     with pytest.raises(NotImplementedError, match="9.5"):
         tengine.ServeEngine(None, {}, policy=object())
+    bad = dataclasses.replace(TC.get_smoke_config("smollm_135m"),
+                              block_pattern=("attn", "conv"))
+    with pytest.raises(ValueError, match="unknown layer kind 'conv'"):
+        tmodel.build_model(bad).init(torch.Generator().manual_seed(0),
+                                     device="cpu")
+    for arch in MOE_ARCHS:
+        jcfg, tcfg = _cfg(arch)
+        m = tmodel.build_model(tcfg)
+        params = m.init(torch.Generator().manual_seed(0), device="cpu")
+        assert "router" in params["segments"][-1]["k0"]["ffn"]
+        ref = jax.eval_shape(
+            lambda: jmodel.LanguageModel(jcfg).init_cache(2, 8))
+        cache = m.init_cache(2, 8, device="cpu")
+        jpaths = jax.tree_util.tree_flatten_with_path(ref["layers"])[0]
+        tleaves = ttree.tree_leaves(cache["layers"])
+        assert len(jpaths) == len(tleaves)
+        for (path, j), t in zip(jpaths, tleaves):
+            assert tuple(t.shape) == tuple(j.shape), path
+            assert not t.any()
+        names = {str(path[-1].key) for path, _ in jpaths}
+        assert names == ({"ckv", "kr"} if tcfg.attn_kind == "mla"
+                         else {"k", "v"})
 
 
 def test_a_dropped_engine_frees_its_parameters_without_the_collector():
