@@ -137,10 +137,31 @@ Phases (any failure exits non-zero, and no result line is printed):
             tolerance (``MOE_DECODE_ATOL``, ``MOE_DECODE_RTOL``), the drops
             on each side printed; (d) one MoE layer on 256 tokens against
             a plain Python loop over its kept (token, slot) pairs.  Each
-            model is freed before the next is drawn.
+            model is freed before the next is drawn;
+12. lm_train — (a) ``recurrentgemma_2b`` at its production config in
+            bfloat16 with fp32 AdamW moments trained by
+            ``train.trainer.Trainer`` (backend ``torch``: the kernels have
+            no backward pass) for 4 steps of 4 x 512 tokens from the
+            port's seeded init: finite losses and trained leaves, no kernel
+            launched; the median step ms of steps 2-4, peak device memory
+            and the final checkpoint's bytes and save seconds printed, the
+            checkpoint then deleted; (b) ``linear_scan`` (the reference's
+            VJP as a ``torch.autograd.Function``) at (1, 4096, 2560) fp32
+            against autograd through the plain doubling scan, within 1e-5
+            of each gradient's scale, both peak memories printed; (c) the
+            trained parameters served as phase 9 serves its init (18
+            ``fuse1d`` launches per prefill, every call's logits within
+            ``LM_BF16_RTOL`` of ``torch``, identical tokens); (d)
+            ``smollm_135m`` at its production config through ``python -m
+            repro_torch.launch.train`` in subprocesses, 6 steps into one
+            directory and 3 then 6 steps into another (a process restart
+            that resumes): the two final checkpoints within the reference's
+            1e-6, bitwise equality printed; then 16 steps in process with
+            int8 gradient compression and ``adamw(3e-3)``: the loss must
+            fall.
 
 Then the temporal form of ``fuse1d`` at each (dtype, shape, form) the
-``cuda`` generates of phases 9 and 10 and the FuSe stem launched it at
+``cuda`` generates of phases 9, 10 and 12 and the FuSe stem launched it at
 (``fuse1d.by_shape``: RG-2B x (4, 64, 2560), xLSTM (4, 64, 1536) and
 (4, 64, 768) K4 causal, the stem (4, 3000, 384) K3 centred; float32 and
 bfloat16), each checked against its plain version there and at T = 2,
@@ -171,6 +192,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1305,15 +1327,56 @@ def shape_counts(by_shape) -> list:
             for key, n in by_shape.items() for sh in [temporal_shape(key)]]
 
 
-def run_lm_launcher(args, timeout=600):
-    """``python -m repro_torch.launch.serve ARGS`` as a user starts it."""
+def run_lm_launcher(args, timeout=600, module="repro_torch.launch.serve"):
+    """``python -m MODULE ARGS`` as a user starts it."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
                                        if env.get("PYTHONPATH") else []))
     return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", *args], cwd=ROOT,
+        [sys.executable, "-m", module, *args], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=timeout)
+
+
+def tree_bytes(params) -> int:
+    """The bytes of a tree's tensors."""
+    from repro_torch import tree
+    return sum(t.numel() * t.element_size() for t in tree.tree_leaves(params))
+
+
+def lm_prompts(seed: int, vocab: int, prompt_lens) -> list:
+    """Phase 9's prompts: token ids drawn from ``(seed, 9)``, one list per
+    length."""
+    import numpy as np
+    rng = np.random.default_rng((seed, 9))
+    return [rng.integers(0, vocab, n).tolist() for n in prompt_lens]
+
+
+def serve_backends(label, cfg, params, reqs, n_conv, rtol, sync, card):
+    """One traced ``ServeEngine.generate(reqs)`` on each of the backends
+    ``cuda`` and ``torch`` with the same ``params``.  Fails unless the
+    ``cuda`` run launched ``fuse1d`` exactly ``n_conv`` times per prefill
+    and never in a decode step, the ``torch`` run launched nothing, every
+    call's logits agree within ``rtol`` and the token lists are identical
+    (``check_backends``).  Prints ``generate_rows``; returns the runs, the
+    calls compared and the worst ratio and max|d|."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServeEngine
+    runs = {bk: traced_generate(
+                ServeEngine(build_model(cfg, bk), params,
+                            max_seq=LM_MAX_SEQ, batch_slots=LM_SLOTS),
+                reqs, sync)
+            for bk in ("cuda", "torch")}
+    to = runs["torch"]
+    check_launches(label, runs["cuda"], n_conv)
+    if any(to["prefill_launches"]) or any(to["decode_launches"]) or any(
+            to["counts"].values()):
+        raise SystemExit(f"{label}: backend torch launched kernels: "
+                         f"{to['counts']}")
+    n_calls, worst, worst_abs = check_backends(
+        label, runs, rtol, len(reqs), reqs[0].max_new_tokens, cfg.vocab_size)
+    generate_rows(label, runs, min(len(r.prompt) for r in reqs), card)
+    return runs, n_calls, worst, worst_abs
 
 
 def lm_phase(seed: int, device="cuda", card="", smoke=False,
@@ -1343,11 +1406,10 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
     a subprocess must exit 0 with one line per prompt.  Returns, per
     dtype, the ``cuda`` generate's ``fuse1d`` launches by shape."""
     import dataclasses
-    import numpy as np
     import torch
-    from repro_torch import configs as C, tree
+    from repro_torch import configs as C
     from repro_torch.models.model import build_model
-    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.serving.engine import Request
     t_phase = time.perf_counter()
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -1358,9 +1420,7 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
 
     base = C.get_smoke_config(arch) if smoke else C.get_config(arch)
     n_conv = sum(k in CONV_KINDS for k in base.layer_pattern)
-    rng = np.random.default_rng((seed, 9))
-    prompts = [rng.integers(0, base.vocab_size, n).tolist()
-               for n in prompt_lens]
+    prompts = lm_prompts(seed, base.vocab_size, prompt_lens)
     reqs = [Request(p, max_new) for p in prompts]
     print(f"{label}: {arch} ({base.num_layers} layers, {n_conv} with a "
           f"temporal conv, d_model {base.d_model}, vocab {base.vocab_size}, "
@@ -1379,8 +1439,7 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
             torch.Generator(device=dev).manual_seed(seed), device=dev)
         sync()
         init_s = time.perf_counter() - t0
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in tree.tree_leaves(params))
+        n_bytes = tree_bytes(params)
         with torch.inference_mode():
             tokens = torch.tensor([p[:min(prompt_lens)] for p in prompts],
                                   device=dev)
@@ -1391,30 +1450,18 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
             conv_worst = check_convs(f"{label} {dtype}", kept, conv_rtol)
             conv_shapes = [tuple(x.shape) for x, _, _ in kept]
             del kept
-        runs = {bk: traced_generate(
-                    ServeEngine(build_model(cfg, bk), params,
-                                max_seq=LM_MAX_SEQ, batch_slots=LM_SLOTS),
-                    reqs, sync)
-                for bk in ("cuda", "torch")}
-        cu, to = runs["cuda"], runs["torch"]
-        # (a) launches: n_conv per prefill, none per decode step
-        check_launches(f"{label} {dtype}", cu, n_conv)
-        if any(to["prefill_launches"]) or any(to["decode_launches"]) or any(
-                to["counts"].values()):
-            raise SystemExit(f"{label} {dtype}: backend torch launched "
-                             f"kernels: {to['counts']}")
+        # (a) launches, (b), (c), (e): every step's logits, cuda against
+        # torch
+        runs, n_calls, worst, worst_abs = serve_backends(
+            f"{label} {dtype}", cfg, params, reqs, n_conv, rtol, sync, card)
+        cu = runs["cuda"]
         if fwd_launches != n_conv:
             raise SystemExit(f"{label} {dtype}: one forward launched fuse1d "
                              f"{fwd_launches} times, not {n_conv}")
-        # (b), (c), (e): every step's logits, cuda against torch, and the
-        # forward's last position against the prefill
-        n_calls, worst, worst_abs = check_backends(
-            f"{label} {dtype}", runs, rtol, len(reqs), max_new,
-            cfg.vocab_size)
+        # the forward's last position against the prefill
         fwd_worst, _ = check_logits(
             f"{label} {dtype} forward against the cuda prefill",
             [(fwd, cu["prefill"][0])], fwd_rtol, (LM_SLOTS, cfg.vocab_size))
-        generate_rows(f"{label} {dtype}", runs, min(prompt_lens), card)
         print(f"{label} {dtype}: parameters {n_bytes} B, init {init_s:.2f} "
               f"s; cuda vs torch over {n_calls} calls: worst max|d| / scale "
               f"{worst:.3e} (max|d| {worst_abs:.3e}, tolerance {rtol}), "
@@ -1426,7 +1473,7 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
               f"first request's tokens "
               f"{cu['tokens'][0][:8]}...; {card}")
         out[dtype] = cu["by_shape"]
-        del params, runs, cu, to, fwd
+        del params, runs, cu, fwd
     # the launcher, as a user starts it
     texts = [" ".join(map(str, p[:n])) for p, n in zip(prompts, (8, 5, 3))]
     t0 = time.perf_counter()
@@ -2045,6 +2092,284 @@ def moe_phase(seed: int, device="cuda", card="", smoke=False,
     print(f"moe: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 12: LM training.  RecurrentGemma-2B at its production config,
+# trained in its bf16 (fp32 AdamW moments) at global batch 4 x 512 tokens
+# and then served on the hand kernel; linear_scan's VJP at a long sequence;
+# SmolLM-135M (the reference launcher's own example) through the training
+# launcher with a process restart, and with int8 gradient compression
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 512
+SCAN_SHAPE = (1, 4096, 2560)
+SCAN_RTOL = 1e-5                # of each gradient's max|autograd|
+SMOL_ARCH, SMOL_STEPS, SMOL_RESTART_AT = "smollm_135m", 6, 3
+SMOL_BATCH, SMOL_SEQ = 8, 128   # the launcher's defaults
+SMOL_INT8_STEPS = 16
+# the reference's exact-resume tolerance, |d| <= atol + rtol |ref|
+# (tests/test_checkpoint_trainer.py:88-91)
+RESUME_TOL = 1e-6
+TRAIN_LINE = re.compile(r"^step +(\d+) loss ([\d.naif]+)")
+
+
+def checkpoint_leaves(directory: str, step: int) -> dict:
+    """A port checkpoint's npz as {path: (stored array, float64 values)};
+    bfloat16 leaves (stored as their int16 bits) read through torch."""
+    import numpy as np
+    import torch
+    d = os.path.join(directory, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        bf16 = set(json.load(f)["bfloat16"])
+    out = {}
+    with np.load(os.path.join(d, "state.npz")) as z:
+        for k in z.files:
+            raw = z[k]
+            vals = (torch.from_numpy(raw).view(torch.bfloat16).double()
+                    .numpy() if k in bf16 else raw.astype(np.float64))
+            out[k] = (raw, vals)
+    return out
+
+
+def scan_vjp(shape, seed: int, dev, sync) -> None:
+    """(b): ``linear_scan`` (the reference's VJP as a Function) against
+    autograd through the plain doubling scan, on a in [0, 1), b and the
+    cotangent standard normal: h and both gradients within ``SCAN_RTOL`` of
+    each one's max|autograd|; each run's peak memory above what was
+    allocated before it, and its forward + backward ms (the second call)."""
+    import torch
+    from repro_torch.models import recurrent as rec
+    on_card = dev.type == "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(shape, generator=gen, device=dev)
+    b = torch.randn(shape, generator=gen, device=dev)
+    dh = torch.randn(shape, generator=gen, device=dev)
+
+    def run(fn):
+        for _ in range(2):
+            ai = a.clone().requires_grad_(True)
+            bi = b.clone().requires_grad_(True)
+            sync()
+            if on_card:
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            h = fn(ai, bi)
+            da, db = torch.autograd.grad(h, (ai, bi), dh)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = (torch.cuda.max_memory_allocated(dev) - base
+                    if on_card else 0)
+            out = (h.detach(), da, db)
+            del ai, bi, h, da, db
+        return out, ms, peak
+
+    got, ms, peak = run(rec.linear_scan)
+    ref, plain_ms, plain_peak = run(rec._doubling_scan)
+    errs = []
+    for name, g, r in zip(("h", "da", "db"), got, ref):
+        err = (g - r).abs().max().item() / r.abs().max().item()
+        errs.append(f"{name} {err:.3e}")
+        if not err <= SCAN_RTOL:
+            raise SystemExit(f"lm_train scan: {name} of the Function is "
+                             f"{err:.3e} of its scale off autograd through "
+                             f"the doubling scan (tolerance {SCAN_RTOL})")
+    print(f"lm_train scan: linear_scan at {tuple(shape)} fp32, the Function "
+          f"against autograd through the doubling scan: max|d| / scale "
+          f"{', '.join(errs)} (tolerance {SCAN_RTOL}); peak memory above "
+          f"the inputs {peak} B against {plain_peak} B; forward + backward "
+          f"{ms:.2f} ms against {plain_ms:.2f} ms")
+
+
+def smol_restart(cfg_smoke: bool, build: str, launch_extra, card) -> None:
+    """(d), the launcher: ``SMOL_ARCH`` for ``SMOL_STEPS`` steps into one
+    directory, and for ``SMOL_RESTART_AT`` then ``SMOL_STEPS`` steps into
+    another (the second command a process restart that resumes from the
+    latest checkpoint, ``--ckpt-every SMOL_RESTART_AT``).  Fails unless
+    every run exits 0, the resumed run logs no step before the restart,
+    and the two final checkpoints agree leaf by leaf within
+    ``RESUME_TOL``; prints whether they are bitwise equal."""
+    import numpy as np
+    dirs = {k: os.path.join(build, f"lm_train_{k}")
+            for k in ("straight", "restart")}
+    common = ["--arch", SMOL_ARCH, "--global-batch", str(SMOL_BATCH),
+              "--seq-len", str(SMOL_SEQ), "--ckpt-every",
+              str(SMOL_RESTART_AT), *launch_extra]
+    for name, steps in (("straight", SMOL_STEPS),
+                        ("restart", SMOL_RESTART_AT),
+                        ("restart", SMOL_STEPS)):
+        t0 = time.perf_counter()
+        proc = run_lm_launcher(
+            [*common, "--steps", str(steps), "--ckpt-dir", dirs[name]],
+            module="repro_torch.launch.train")
+        logged = [int(m.group(1)) for m in
+                  map(TRAIN_LINE.match, proc.stdout.splitlines()) if m]
+        if proc.returncode != 0 or "final loss:" not in proc.stdout:
+            raise SystemExit(f"lm_train launcher ({name}, {steps} steps) "
+                             f"exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        if name == "restart" and steps == SMOL_STEPS and any(
+                s < SMOL_RESTART_AT for s in logged):
+            raise SystemExit(f"lm_train launcher: the rerun logged steps "
+                             f"{logged}; it did not resume at "
+                             f"{SMOL_RESTART_AT}")
+        last = proc.stdout.strip().splitlines()[-1]
+        print(f"lm_train launcher: {SMOL_ARCH}{' (smoke)' * cfg_smoke} "
+              f"--steps {steps} into {name}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s, logged steps {logged}, "
+              f"{last!r}")
+    a = checkpoint_leaves(dirs["straight"], SMOL_STEPS)
+    b = checkpoint_leaves(dirs["restart"], SMOL_STEPS)
+    if sorted(a) != sorted(b):
+        raise SystemExit("lm_train launcher: the two final checkpoints "
+                         "hold different leaves")
+    worst, bitwise = 0.0, True
+    for k, (raw, ref) in a.items():
+        raw_b, got = b[k]
+        d = np.abs(got - ref)
+        worst = max(worst, float(d.max()))
+        bitwise &= bool(np.array_equal(raw, raw_b))
+        if np.any(d > RESUME_TOL + RESUME_TOL * np.abs(ref)):
+            raise SystemExit(f"lm_train launcher: leaf {k} of the restarted "
+                             f"run's final checkpoint is {float(d.max()):.3e}"
+                             f" off the straight run's (tolerance "
+                             f"{RESUME_TOL} + {RESUME_TOL} |ref|)")
+    print(f"lm_train launcher: step-{SMOL_STEPS} checkpoints of the straight "
+          f"and the restarted run, {len(a)} leaves (parameters, AdamW m and "
+          f"v): max|d| {worst:.3e} (tolerance {RESUME_TOL} + {RESUME_TOL} "
+          f"|ref|), bitwise {'equal' if bitwise else 'NOT equal'}; {card}")
+    for d in dirs.values():
+        shutil.rmtree(d)
+
+
+def lm_train_phase(seed: int, device="cuda", card="", smoke=False,
+                   prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
+                   launch_extra=()) -> dict:
+    """Phase 12: (a) ``recurrentgemma_2b`` at its production config (26
+    layers, d_model 2560, vocab 256000) in its bf16 with fp32 AdamW moments,
+    trained by ``train.trainer.Trainer`` (backend ``torch``: the kernels
+    have no backward pass) for ``TRAIN_STEPS`` steps at global batch
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, one microbatch, from the port's
+    seeded init; fails unless every loss is finite, every trained leaf is
+    finite and no kernel launched; prints the median of steps 2-4, peak
+    memory and the final checkpoint's bytes and save seconds, then deletes
+    it.  (b) ``scan_vjp`` at ``SCAN_SHAPE``.  (c) the trained parameters
+    served as phase 9 serves its init (``serve_backends``: 18 ``fuse1d``
+    launches per prefill, every call's logits within ``LM_BF16_RTOL``,
+    identical tokens), with phase 9's prompts.  (d) ``smol_restart``, then
+    ``SMOL_ARCH`` trained in process for ``SMOL_INT8_STEPS`` steps with
+    int8 gradient compression and ``adamw(3e-3)``, as the reference's test
+    does: the loss must fall.  ``smoke``: the smoke configs at sequence 32
+    and a (1, 256, 64) scan, for a CPU rehearsal.  Returns the served
+    ``fuse1d`` launches by shape, under the dtype."""
+    import torch
+    from repro_torch import configs as C, tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import Request
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    build = os.path.join(ROOT, "build")
+    seq = 32 if smoke else TRAIN_SEQ
+    get = C.get_smoke_config if smoke else C.get_config
+
+    # (a) RecurrentGemma-2B trained at full width
+    cfg = get(LM_ARCH)
+    ckpt_dir = os.path.join(build, "lm_train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    trainer = Trainer(cfg, TrainerConfig(
+        steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=seq,
+        microbatches=1, log_every=1, ckpt_every=0, ckpt_dir=ckpt_dir,
+        seed=seed), device=dev)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.train()
+    train_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"lm_train {LM_ARCH}: losses {losses}")
+    if any(counts.values()):
+        raise SystemExit(f"lm_train {LM_ARCH}: training launched kernels "
+                         f"{counts}")
+    params = out["params"]
+    if not all(bool(torch.isfinite(t).all())
+               for t in tree.tree_leaves(params)):
+        raise SystemExit(f"lm_train {LM_ARCH}: a trained leaf is not finite")
+    later = sorted(h["sec_per_step"] for h in hist[1:])
+    step_ms = later[len(later) // 2] * 1e3
+    save = trainer.ckpt.last_save
+    print(f"lm_train {LM_ARCH}{' (smoke)' * smoke}: {cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.dtype} "
+          f"parameters ({tree_bytes(params)} B) with fp32 AdamW moments "
+          f"({tree_bytes(out['opt_state'])} B); {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH}x{seq} tokens on backend torch: losses "
+          f"{[round(x, 4) for x in losses]}; step ms "
+          f"{[round(h['sec_per_step'] * 1e3, 1) for h in hist]}, median of "
+          f"steps 2-{TRAIN_STEPS} {step_ms:.1f} ms "
+          f"({TRAIN_BATCH * seq / step_ms * 1e3:.0f} tokens/s); train wall "
+          f"{train_s:.1f} s; peak device memory {peak} B; launches {counts};"
+          f" final checkpoint step {save['step']}: {save['bytes']} B, host "
+          f"copy {save['copy_s']:.2f} s + write {save['write_s']:.2f} s; "
+          f"{card}")
+    shutil.rmtree(ckpt_dir)
+    del out, trainer, hist
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) linear_scan's VJP against autograd through the doubling scan
+    scan_vjp((1, 256, 64) if smoke else SCAN_SHAPE, seed, dev, sync)
+
+    # (c) the trained weights served on the hand kernel
+    n_conv = sum(k in CONV_KINDS for k in cfg.layer_pattern)
+    reqs = [Request(p, max_new)
+            for p in lm_prompts(seed, cfg.vocab_size, prompt_lens)]
+    rtol = LM_BF16_RTOL if cfg.dtype == "bfloat16" else KERNEL_RTOL
+    runs, n_calls, worst, worst_abs = serve_backends(
+        f"lm_train {LM_ARCH} trained, served", cfg, params, reqs, n_conv,
+        rtol, sync, card)
+    served = runs["cuda"]["by_shape"]
+    print(f"lm_train {LM_ARCH} trained, served: cuda vs torch over {n_calls}"
+          f" calls: worst max|d| / scale {worst:.3e} (max|d| "
+          f"{worst_abs:.3e}, tolerance {rtol}), tokens identical; fuse1d "
+          f"{n_conv} launches per prefill, by shape "
+          f"{shape_counts(served)}; first request's tokens "
+          f"{runs['cuda']['tokens'][0][:8]}...; {card}")
+    del runs, params
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) SmolLM-135M: a process restart, then int8 compression
+    smol_restart(smoke, build, launch_extra, card)
+    int8_dir = os.path.join(build, "lm_train_int8")
+    shutil.rmtree(int8_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = Trainer(get(SMOL_ARCH), TrainerConfig(
+        steps=SMOL_INT8_STEPS, global_batch=SMOL_BATCH, seq_len=32,
+        microbatches=2, log_every=SMOL_INT8_STEPS - 1, ckpt_every=0,
+        ckpt_dir=int8_dir, grad_compression="int8", seed=1), device=dev,
+        optimizer=adamw(3e-3, weight_decay=0.0)).train()
+    first, last = (h["loss"] for h in out["history"])
+    if not last < first:
+        raise SystemExit(f"lm_train {SMOL_ARCH} int8: the loss went from "
+                         f"{first} to {last}")
+    print(f"lm_train {SMOL_ARCH} int8: {SMOL_INT8_STEPS} steps of "
+          f"{SMOL_BATCH}x32 tokens in 2 microbatches, int8 gradient "
+          f"compression, adamw(3e-3): loss {first:.4f} -> {last:.4f} in "
+          f"{time.perf_counter() - t0:.1f} s; {card}")
+    shutil.rmtree(int8_dir)
+    print(f"lm_train: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {cfg.dtype: served}
+
+
 def zoo_report(pair_counts, rows, notes) -> dict:
     """Phase 3's zoo-wide report: each distinct bucket-8 shape's row, the
     sums Σ launches x ms, x bound and x library per (network, variant) and
@@ -2552,12 +2877,16 @@ def main() -> int:
 
     # -- 11. moe -------------------------------------------------------------
     moe_phase(args.seed, card=card)
+    torch.cuda.empty_cache()
 
-    # the temporal form's rows: each (dtype, shape, form) at which phases 9
-    # and 10 launched fuse1d (the cuda generates' prefills, the FuSe stem
+    # -- 12. lm_train --------------------------------------------------------
+    trained = lm_train_phase(args.seed, card=card)
+
+    # the temporal form's rows: each (dtype, shape, form) at which phases 9,
+    # 10 and 12 launched fuse1d (the cuda generates' prefills, the FuSe stem
     # calls), checked there and at T = 2 (< K - 1) against the plain
     # version, timed, with the launches counted at that shape
-    paths = [(path, called_from, by_dtype[dtype])
+    paths = [(path, called_from, by_dtype.get(dtype, {}))
              for dtype in ("float32", "bfloat16")
              for path, called_from, by_dtype in (
                  (f"{LM_ARCH} prefill", "src/repro/kernels/ops.py:39", lm),
@@ -2565,7 +2894,9 @@ def main() -> int:
                   "src/repro/models/recurrent.py:220 (mLSTM), :321 (sLSTM)",
                   lm2["xlstm"]),
                  (f"{WHISPER_ARCH} FuSe stem", "src/repro/models/stems.py:52",
-                  lm2["whisper"]))]
+                  lm2["whisper"]),
+                 (f"{LM_ARCH} trained, prefill",
+                  "src/repro/kernels/ops.py:39", trained))]
     for path, called_from, by_shape in paths:
         for key, n in by_shape.items():
             sh = temporal_shape(key)

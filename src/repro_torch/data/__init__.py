@@ -1,4 +1,5 @@
-"""Data pipelines of the vision training path (port of ``repro.data``; the
-LM token pipeline is not ported yet)."""
+"""Data pipelines: the vision training path's and the LM token pipeline
+(port of ``repro.data``)."""
 from repro_torch.data.vision_synth import synth_image_batch, SynthVisionConfig  # noqa: F401
 from repro_torch.data.prefetch import Prefetcher  # noqa: F401
+from repro_torch.data.tokens import TokenConfig, TokenPipeline  # noqa: F401

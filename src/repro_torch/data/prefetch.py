@@ -1,4 +1,9 @@
-"""Background prefetch for step-indexed pipelines (overlap data gen with compute)."""
+"""Background prefetch for step-indexed pipelines (overlap data gen with compute).
+
+Port of ``repro.data.prefetch``.  ``close()`` also joins the worker: a
+worker left running (blocked on a full queue, or inside a PyTorch op)
+when the interpreter exits can abort the process.
+"""
 from __future__ import annotations
 
 import queue
@@ -24,10 +29,22 @@ class Prefetcher:
             try:
                 item = self._fn(step)
             except Exception as e:  # surface errors to the consumer
-                self._q.put(e)
+                self._put(e)
                 return
-            self._q.put((step, item))
+            if not self._put((step, item)):
+                return
             step += 1
+
+    def _put(self, item) -> bool:
+        """Put ``item``, waiting for room until ``close()``; False if
+        closed first."""
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     def next(self):
         item = self._q.get()
@@ -37,6 +54,7 @@ class Prefetcher:
 
     def close(self):
         self._stop.set()
+        self._thread.join()
         try:
             while True:
                 self._q.get_nowait()

@@ -1,0 +1,146 @@
+"""Step builders: train_step (grad-accumulation microbatching),
+prefill_step, decode_step.
+
+Port of ``repro.launch.steps`` for one device.  Eager autograd through the
+model's plain ops stands in for ``jax.jit(value_and_grad)``; the model
+must be on backend ``torch`` (the kernels have no backward pass).  The
+reference's ``train_step_shardings`` and ``zero_extend`` place the state
+on a mesh; they wait for ``launch/sharding.py`` (ROADMAP Queue 1 item
+4.2), as does ``policy.act_constraint``, which is the identity on one
+device.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import torch
+
+from repro_torch.data.vision_synth import step_seed
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.model import LanguageModel
+from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+                               warmup_cosine)
+from repro_torch.optim.compression import compress_tree
+from repro_torch.optim.optimizers import Optimizer
+from repro_torch.train.vision import value_and_grad
+from repro_torch.tree import tree_leaves
+
+PyTree = Any
+
+
+def default_optimizer(cfg: ArchConfig) -> Optimizer:
+    sched = warmup_cosine(3e-4, 200, 10_000, min_lr=3e-5)
+    return adamw(sched, b1=0.9, b2=0.95, weight_decay=0.1)
+
+
+def default_microbatches(cfg: ArchConfig, global_batch: int, seq: int,
+                         n_chips: int = 1) -> int:
+    """Pick grad-accumulation depth so per-chip live activations stay sane.
+
+    Heuristic: target <= ~2^21 (2M) tokens x d_model bf16 bytes per chip of
+    saved residuals across the depth; large models need more splits.
+    """
+    tokens_per_chip = global_batch * seq / max(n_chips, 1)
+    n_super = cfg.num_layers
+    bytes_per_chip = tokens_per_chip * cfg.d_model * 2 * max(n_super, 1)
+    budget = 4e9                      # ~4 GB of checkpointed residuals
+    n = 1
+    while bytes_per_chip / n > budget and n < global_batch:
+        n *= 2
+    while global_batch % n != 0:
+        n //= 2
+    return max(n, 1)
+
+
+def update_in_place(opt: Optimizer, grads: List, opt_state: dict,
+                    params: PyTree, step: int) -> None:
+    """``opt.update`` then ``apply_updates``, one leaf at a time, each new
+    parameter and state leaf written into the old tensor.  ``grads`` is the
+    list of gradient leaves in ``tree_leaves`` order (``None`` for a leaf
+    the loss does not reach); each is dropped from it once used.  The
+    numbers are those of the whole-tree update (every optimizer of
+    ``repro_torch.optim`` is elementwise, its state a dict of trees shaped
+    as ``params``), but only one leaf's new values are alive at a time: a
+    whole-tree AdamW would hold the old and the new fp32 moments and the
+    fp32 updates of every leaf at once."""
+    p_leaves = tree_leaves(params)
+    s_leaves = {k: tree_leaves(v) for k, v in opt_state.items()}
+    assert all(len(v) == len(p_leaves) for v in s_leaves.values())
+    assert len(grads) == len(p_leaves)
+    with torch.no_grad():
+        for i, p in enumerate(p_leaves):
+            state = {k: v[i] for k, v in s_leaves.items()}
+            updates, new = opt.update(grads[i], state, p, step)
+            grads[i] = None
+            for k, t in state.items():
+                t.copy_(new[k])
+            p.copy_(apply_updates(p, updates))
+
+
+def make_train_step(model: LanguageModel, n_micro: int, optimizer=None,
+                    grad_compression: str = "none") -> Callable:
+    """Returns ``train_step(params, opt_state, step, batch) -> (params,
+    opt_state, metrics)``.  ``batch`` leaves are (n_micro, mb, ...).  With
+    ``n_micro == 1`` the gradient is used directly, in the parameters'
+    dtype; otherwise each microbatch's gradient is accumulated in fp32 and
+    averaged.  ``grad_compression="int8"`` quantizes each microbatch's
+    gradient (``compress_tree``, a generator seeded by the step) before it
+    is accumulated, always in fp32, as the reference's trainer does.  Then
+    ``clip_by_global_norm(1.0)`` and the optimizer (``default_optimizer``
+    unless given), applied in place: the parameters and the optimizer
+    state passed in are updated and returned, as the reference donates
+    them.  ``metrics``: ``loss`` (the mean over microbatches) and
+    ``grad_norm``, device tensors."""
+    if grad_compression not in ("none", "int8"):
+        raise ValueError(f"grad_compression: none or int8, not "
+                         f"{grad_compression!r}")
+    opt = optimizer or default_optimizer(model.cfg)
+    int8 = grad_compression == "int8"
+
+    def train_step(params, opt_state, step, batch):
+        micro = [{k: v[i] for k, v in batch.items()} for i in range(n_micro)]
+        if n_micro == 1 and not int8:
+            # direct path: no fp32 accumulator tree
+            (loss_sum, _), grads = value_and_grad(model.loss, params,
+                                                  micro[0])
+            grads = tree_leaves(grads)
+        else:
+            gen = None
+            if int8:
+                dev = tree_leaves(params)[0].device
+                gen = torch.Generator(device=dev).manual_seed(
+                    step_seed(0, step))
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device)
+                     for p in tree_leaves(params)]
+            loss_sum = 0.0
+            for mb in micro:
+                (loss, _), g = value_and_grad(model.loss, params, mb)
+                if int8:
+                    g = compress_tree(g, gen)
+                for acc, gi in zip(grads, tree_leaves(g)):
+                    if gi is not None:
+                        acc.add_(gi.float())
+                del g
+                loss_sum = loss_sum + loss
+            for acc in grads:
+                acc.div_(n_micro)
+        with torch.no_grad():
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+        update_in_place(opt, grads, opt_state, params, step)
+        return params, opt_state, {"loss": loss_sum / n_micro,
+                                   "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_prefill_step(model: LanguageModel) -> Callable:
+    def prefill_step(params, tokens, extras):
+        return model.prefill(params, tokens, extras)
+    return prefill_step
+
+
+def make_decode_step(model: LanguageModel) -> Callable:
+    def decode_step(params, token, cache, extras):
+        return model.decode_step(params, token, cache, extras)
+    return decode_step

@@ -1,6 +1,6 @@
-"""LanguageModel: init / forward / prefill / decode over segments.
+"""LanguageModel: init / forward / loss / prefill / decode over segments.
 
-Port of ``repro.models.model`` for serving.  Parameters of each segment
+Port of ``repro.models.model``.  Parameters of each segment
 are stacked on a leading superblock axis, as in the reference, and a Python
 loop over that axis stands in for ``lax.scan`` (``remat`` and
 ``scan_unroll`` have no meaning here and are ignored).  The model carries
@@ -9,7 +9,9 @@ blocks' temporal FuSeConv on the hand ``fuse1d`` kernel (one launch per
 ``rec`` layer per ``forward`` or ``prefill``; a decode step launches none).
 The MoE and MLA layers (``qwen3_moe_235b``, ``deepseek_v2_236b``) run no
 hand kernel on either backend.  The decode cache's ``pos`` is a Python
-int.  ``loss`` waits for LM training (ROADMAP Queue 1 item 9.5).
+int.  ``loss`` (training) runs on backend ``torch``: the kernels have no
+backward pass and refuse grad-requiring inputs, and the reference trains
+on plain ops too.
 """
 from __future__ import annotations
 
@@ -168,6 +170,23 @@ class LanguageModel:
                     x = S.layer_forward(lp[f"k{i}"], x, kind, self.cfg,
                                         seg.use_moe, ctx)
         return self._logits(params, x)
+
+    def loss(self, params: PyTree, batch: dict) -> Tuple[Tensor, dict]:
+        """Mean next-token NLL, ``logsumexp(logits) - logit[label]``, over
+        ``batch["labels"]`` (B, S); every batch key but ``tokens`` and
+        ``labels`` goes to ``extras``.  The label's logit is a gather (the
+        reference contracts a one-hot, which at vocab 256000 costs as
+        much memory as the logits).  Returns ``(loss, {"loss",
+        "ppl_proxy"})``, ``ppl_proxy = exp(min(loss, 20))``."""
+        logits = self.forward(params, batch["tokens"],
+                              extras={k: v for k, v in batch.items()
+                                      if k not in ("tokens", "labels")})
+        labels = batch["labels"].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        label_logit = logits.gather(-1, labels[..., None])[..., 0]
+        loss = torch.mean(lse - label_logit)
+        return loss, {"loss": loss,
+                      "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 
     # -- decode ---------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,

@@ -9,10 +9,11 @@ per block per full-sequence call).  A decode step's K-tap window stays the
 plain ``fuse_conv1d_temporal_step``.
 
 The RG-LRU's linear recurrence h_t = a_t h_{t-1} + b_t runs as a log-depth
-doubling scan (forward only: the reference's custom VJP belongs to
-training).  The xLSTM cells are nonlinear and run step by step over time,
-as the reference's ``lax.scan`` does, with their state in fp32 and the
-stabilizer ``m`` starting at -inf.  Their prefill (``*_block_prefill``)
+doubling scan, and trains through the reference's custom VJP: a
+``torch.autograd.Function`` that saves only (a, h) and runs the reverse
+recurrence as the same doubling scan.  The xLSTM cells are nonlinear and
+run step by step over time, as the reference's ``lax.scan`` does, with
+their state in fp32 and the stabilizer ``m`` starting at -inf.  Their prefill (``*_block_prefill``)
 hoists the projections and the conv out of the time loop (the conv of
 step t reads only inputs) and keeps the decode step's casts, so it returns
 what the reference's ``layer_prefill`` gets by running the decode step
@@ -90,7 +91,7 @@ def _rglru_coeffs(p: dict, x: Tensor) -> Tuple[Tensor, Tensor]:
     return a, b
 
 
-def linear_scan(a: Tensor, b: Tensor) -> Tensor:
+def _doubling_scan(a: Tensor, b: Tensor) -> Tensor:
     """h_t = a_t * h_{t-1} + b_t over axis 1, h_0 = 0, by doubling: after
     the step of stride d, (a_t, b_t) compose the 2d steps ending at t."""
     s, d = a.shape[1], 1
@@ -99,6 +100,35 @@ def linear_scan(a: Tensor, b: Tensor) -> Tensor:
         a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
         d *= 2
     return b
+
+
+class _LinearScan(torch.autograd.Function):
+    """The reference's custom VJP (``recurrent.py:86-123``): the forward
+    saves only (a, h); the backward runs the reverse recurrence
+    g_t = dh_t + a_{t+1} g_{t+1} (db = g, da_t = g_t h_{t-1}) as the same
+    doubling scan over the time-reversed (a_{t+1}, dh).  Autograd through
+    the doubling scan would keep log2(S) levels of (B, S, W) pairs."""
+
+    @staticmethod
+    def forward(ctx, a: Tensor, b: Tensor) -> Tensor:
+        h = _doubling_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh: Tensor):
+        a, h = ctx.saved_tensors
+        a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+        g = _doubling_scan(a_next.flip(1), dh.flip(1)).flip(1)
+        h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return g * h_prev, g
+
+
+def linear_scan(a: Tensor, b: Tensor) -> Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1, h_0 = 0: a log-depth
+    doubling scan, differentiable with the reference's memory-light rule
+    (``_LinearScan``)."""
+    return _LinearScan.apply(a, b)
 
 
 def rglru_scan(p: dict, x: Tensor) -> Tensor:

@@ -1,6 +1,6 @@
-"""Optimizers and learning-rate schedules (port of ``repro.optim``; the
-gradient compression of ``repro.optim.compression`` belongs to the LM
-stack and is not ported yet)."""
+"""Optimizers, learning-rate schedules and int8 gradient compression (port
+of ``repro.optim``; ``compression.compressed_psum`` waits for ROADMAP
+Queue 1 item 7)."""
 from repro_torch.optim.optimizers import (  # noqa: F401
     adamw, sgd_momentum, rmsprop, clip_by_global_norm, ema_init, ema_update,
     apply_updates, global_norm,

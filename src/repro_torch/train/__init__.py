@@ -1,2 +1,2 @@
-"""Vision training loops (port of ``repro.train.vision``; the LM trainer
-and its checkpoints are not ported yet)."""
+"""Training loops: vision (port of ``repro.train.vision``) and the LM
+trainer with its checkpoints (``repro.train.{trainer,checkpoint}``)."""
