@@ -158,7 +158,30 @@ Phases (any failure exits non-zero, and no result line is printed):
             that resumes): the two final checkpoints within the reference's
             1e-6, bitwise equality printed; then 16 steps in process with
             int8 gradient compression and ``adamw(3e-3)``: the loss must
-            fall.
+            fall;
+13. mesh  — a data mesh of 4 logical devices of the card
+            (``REPRO_TORCH_VIRTUAL_DEVICES``, a CUDA stream each):
+            MobileNetV3-Large ``fuse_half`` and ``depthwise`` at 224 px,
+            every bucket of (1, 2, 4, 8) on groups of width 1, 2 and 4
+            through ``ModelRegistry(mesh=).apply(devices=)``, each kernel
+            launched exactly stripes x its launches for one stripe, the
+            logits within ``SERVE_RTOL`` of the unsharded ``torch`` and
+            ``cuda`` registries, bitwise equality with ``cuda`` printed
+            (and, where it fails, the kernel shapes whose stripe is not
+            bitwise the whole batch's rows); each bucket-8 batch's wall
+            over 1, 2 and 4 devices; the pipelined engine with cross-model
+            rounds and the adaptive planner over both models (its
+            reachable groups warmed, 16 requests fanned back in
+            submission order within ``SERVE_RTOL`` of ``torch``, every
+            kernel launched); then ``python -m
+            repro_torch.launch.serve_vision`` as a coordinator and a
+            worker (2 logical devices each, one fresh build directory
+            and manifest) beside one process over 4, at once, with the
+            checks of ``scripts/multiprocess_check_torch.py``: one mesh
+            fingerprint, every request ``ok``, equal ``logits_sha256``,
+            the worker executed parts and ran no nvcc, the coordinator
+            built cold; the card's compute mode is printed first (an
+            exclusive one fails the phase).
 
 Then the temporal form of ``fuse1d`` at each (dtype, shape, form) the
 ``cuda`` generates of phases 9, 10 and 12 and the FuSe stem launched it at
@@ -188,6 +211,7 @@ import argparse
 import collections
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -2370,6 +2394,294 @@ def lm_train_phase(seed: int, device="cuda", card="", smoke=False,
     return {cfg.dtype: served}
 
 
+# phase 13: vision serving over a data mesh of logical devices of the card,
+# in process and across two launcher processes
+MESH_DEVICES = 4
+MESH_WIDTHS = (1, 2, 4)
+MESH_BUCKETS = (1, 2, 4, 8)
+MESH_REQUESTS = 16
+
+
+def seeded_randn(seed: int, dev):
+    """``randn(*shape, scale=1.0)`` whose i-th call draws from a generator
+    of its own, seeded (seed, i): two sequences of calls whose shapes differ
+    only in the first axis draw the same leading rows."""
+    import numpy as np
+    import torch
+    calls = itertools.count()
+
+    def randn(*shape, scale=1.0):
+        gen = np.random.default_rng((seed, next(calls)))
+        return torch.from_numpy((gen.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(dev)
+
+    return randn
+
+
+def stripe_breaks(net, variant, bucket: int, rows: int, dev,
+                  seed: int) -> list:
+    """The kernel shapes of ``variant``'s forward at batch ``bucket`` whose
+    first ``rows`` images' outputs are not bitwise what the same kernel
+    gives on those images alone (a tiling picked from the batch, or a K
+    split from the row count, changes the order of a sum)."""
+    import torch
+    from repro_torch.vision import zoo
+    shapes = {json.dumps(sh, sort_keys=True): (name, sh)
+              for name, sh in zoo.kernel_launches(net, variant, bucket)}
+    out = []
+    for name, sh in shapes.values():
+        part = (dict(sh, m=sh["m"] * rows // bucket) if name == "matmul"
+                else dict(sh, b=rows))
+        whole = shape_case(name, sh, seeded_randn(seed, dev))["run"]()
+        alone = shape_case(name, part, seeded_randn(seed, dev))["run"]()
+        if not torch.equal(whole[:alone.shape[0]], alone):
+            out.append(f"{name} {json.dumps(part, sort_keys=True)}")
+    return out
+
+
+def compute_mode() -> str:
+    """The card's compute mode as nvidia-smi reports it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def mesh_phase(seed: int, device="cuda", card="", net=None,
+               launch_models=LAUNCH_MODELS, launch_extra=()) -> dict:
+    """Phase 13: (a) a registry over a mesh of ``MESH_DEVICES`` logical
+    devices of the card (``REPRO_TORCH_VIRTUAL_DEVICES``: one stream each)
+    serves ``net`` (default MobileNetV3-Large at 224) in ``fuse_half`` and
+    ``depthwise``: every bucket of ``MESH_BUCKETS`` on groups of width 1, 2
+    and 4, each kernel launched exactly stripes x its launches for one
+    stripe, the logits within ``SERVE_RTOL`` of the unsharded ``torch`` and
+    ``cuda`` registries, bitwise equality with ``cuda`` reported (and, where
+    it fails, the kernel shapes that break it); the striped batch's wall
+    ms; then the pipelined engine with cross-model rounds and the adaptive
+    planner over both models, its reachable groups warmed, 16 requests
+    fanned back in submission order within ``SERVE_RTOL`` of ``torch``,
+    every kernel launched.  (b) the launcher as two processes (coordinator
+    and worker, 2 logical devices each, one fresh build directory and
+    manifest) and as one process over 4, at once, on ``launch_models``:
+    the checks of ``scripts/multiprocess_check_torch.py`` (same
+    fingerprint, every request ``ok``, the pair's ``logits_sha256`` equal
+    to the single process's, the worker executed parts and ran no nvcc,
+    the coordinator built cold, the snapshot's ``multiprocess`` block).
+    Returns the kernels' launch counts of the engine round."""
+    import numpy as np
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import ENV_VIRTUAL_DEVICES, make_data_mesh
+    from repro_torch.serving.vision import (LatencyCalibrator, ModelRegistry,
+                                            SystolicCostModel,
+                                            VisionServeEngine, create_engine)
+    from repro_torch.vision import zoo
+    t_phase = time.perf_counter()
+    net = net or zoo.mobilenet_v3_large()
+    res = net.resolution
+    mesh = make_data_mesh(MESH_DEVICES, device,
+                          env={ENV_VIRTUAL_DEVICES: str(MESH_DEVICES)})
+    print(f"mesh: {len(mesh.devices)} logical devices on "
+          f"{sorted({str(d.device) for d in mesh.devices})}, one stream "
+          f"each")
+    regs = {"mesh": ModelRegistry(backend="cuda", mesh=mesh),
+            "cuda": ModelRegistry(backend="cuda", device=device),
+            "torch": ModelRegistry(backend="torch", device=device)}
+    keys = []
+    for i, v in enumerate(("fuse_half", "depthwise")):
+        m = regs["mesh"].register(net, v, seed=seed + i)
+        for name in ("cuda", "torch"):
+            regs[name].register(net, v, params=m.params)
+        keys.append(m.key)
+    rng = np.random.default_rng((seed, 13))
+
+    # (a) every bucket on every group width, against the unsharded paths
+    not_bitwise, worst = [], 0.0
+    for key in keys:
+        variant = key.split("/")[1]
+        for bucket in MESH_BUCKETS:
+            x = rng.standard_normal((bucket, res, res, 3)).astype(np.float32)
+            ref = regs["torch"].apply(key, x).materialize().copy()
+            whole = regs["cuda"].apply(key, x).materialize().copy()
+            scale = max(1.0, float(np.abs(ref).max()))
+            for width in MESH_WIDTHS:
+                rows = bucket // width if bucket % width == 0 else bucket
+                stripes = bucket // rows
+                kops.reset_launch_counts()
+                got = regs["mesh"].apply(
+                    key, x, devices=mesh.devices[:width]).materialize()
+                counts = {k: c for k, c in kops.launch_counts().items() if c}
+                expected = collections.Counter(
+                    name for name, _ in zoo.kernel_launches(net, variant,
+                                                            rows))
+                expected = {k: stripes * c for k, c in expected.items()}
+                if counts != expected:
+                    raise SystemExit(f"mesh {key} bucket {bucket} width "
+                                     f"{width}: launches {counts}, not "
+                                     f"{expected}")
+                d_ref = float(np.abs(got - ref).max()) / scale
+                d_whole = float(np.abs(got - whole).max()) / scale
+                if not np.all(np.isfinite(got)) or max(d_ref, d_whole) \
+                        > SERVE_RTOL:
+                    raise SystemExit(f"mesh {key} bucket {bucket} width "
+                                     f"{width}: max|d torch| / scale "
+                                     f"{d_ref:.2e}, max|d cuda| / scale "
+                                     f"{d_whole:.2e} (tolerance "
+                                     f"{SERVE_RTOL})")
+                worst = max(worst, d_ref, d_whole)
+                same = bool(np.array_equal(got, whole))
+                if not same:
+                    not_bitwise.append((variant, bucket, rows))
+                print(f"mesh {key} bucket {bucket} width {width} ({stripes} "
+                      f"stripe{'s' if stripes > 1 else ''} of {rows}): max|d "
+                      f"torch| / scale {d_ref:.2e}, max|d unstriped cuda| / "
+                      f"scale {d_whole:.2e}, bitwise "
+                      f"{'equal' if same else 'NOT equal'} to unstriped "
+                      f"cuda, launches {counts}")
+    print(f"mesh: worst max|d| / scale {worst:.2e} (tolerance "
+          f"{SERVE_RTOL}); striped logits bitwise equal to unstriped in "
+          f"{len(MESH_BUCKETS) * len(MESH_WIDTHS) * len(keys) - len(not_bitwise)}"
+          f" of {len(MESH_BUCKETS) * len(MESH_WIDTHS) * len(keys)} cases")
+    for variant, bucket, rows in sorted(set(not_bitwise)):
+        breaks = stripe_breaks(net, variant, bucket, rows,
+                               regs["cuda"].device, seed)
+        print(f"mesh not bitwise: {variant} bucket {bucket} as stripes of "
+              f"{rows}: " + ("; ".join(breaks) if breaks else
+                             "every hand kernel is bitwise on its stripe, "
+                             "so the break is in the library ops (cuDNN's "
+                             "stem conv, the dense head)"))
+    for key in keys:
+        for width in MESH_WIDTHS:
+            x = rng.standard_normal((8, res, res, 3)).astype(np.float32)
+            walls = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                regs["mesh"].apply(key, x,
+                                   devices=mesh.devices[:width]).materialize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            print(f"mesh {key} bucket 8 over {width} logical device"
+                  f"{'s' if width > 1 else ''}: batch wall (pinned upload, "
+                  f"forward, copy back) median "
+                  f"{sorted(walls[1:])[len(walls[1:]) // 2]:.2f} ms of 5; "
+                  f"{card}")
+
+    # the pipelined engine: cross-model rounds over the mesh
+    img_rng = np.random.default_rng((seed, 4))
+    lo, hi = (res * 5) // 7, (res * 9) // 7
+    images = [img_rng.standard_normal(
+        (int(img_rng.integers(lo, hi + 1)), int(img_rng.integers(lo, hi + 1)),
+         3)).astype(np.float32) for _ in range(MESH_REQUESTS)]
+    sync = VisionServeEngine(regs["torch"], buckets=MESH_BUCKETS,
+                             pipelined=False)
+    reference, _ = submit_round(sync, keys, images)
+    sync.close()
+    engine = create_engine(regs["mesh"], "pipelined", buckets=MESH_BUCKETS,
+                           cost_model=SystolicCostModel(
+                               calibrator=LatencyCalibrator(),
+                               n_devices=MESH_DEVICES,
+                               round_planner="adaptive"))
+    try:
+        t0 = time.perf_counter()
+        warmed = engine.warmup()
+        warm_s = time.perf_counter() - t0
+        groups = sorted({ids for _, _, ids in warmed if ids is not None})
+        cold = [(k, b, ids) for k, b, ids in warmed if ids is not None
+                and not regs["mesh"].is_compiled(
+                    k, b, regs["mesh"].devices_by_id(ids))]
+        if not engine.cross_model or not groups or cold:
+            raise SystemExit(f"mesh engine: cross_model "
+                             f"{engine.cross_model}, warmed groups "
+                             f"{groups}, entries not warm {cold}")
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rids = [engine.submit(keys[i % 2], img)
+                for i, img in enumerate(images)]
+        results = engine.flush()
+        wall_s = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        snap = engine.snapshot()
+    finally:
+        engine.close()
+    if [r.rid for r in results] != rids:
+        raise SystemExit(f"mesh engine: results in order "
+                         f"{[r.rid for r in results]}, not {rids}")
+    worst = check_served("mesh engine", results, reference)
+    missing = [k for k, c in counts.items() if c == 0]
+    if missing or snap["rounds"] < 1 or snap["cross_model_rounds"] < 1:
+        raise SystemExit(f"mesh engine: rounds {snap['rounds']}, cross-model"
+                         f" {snap['cross_model_rounds']}, kernels never "
+                         f"launched {missing}")
+    print(f"mesh engine: warmup {warm_s:.1f} s over {len(warmed)} entries "
+          f"(groups {groups} besides the whole mesh); {MESH_REQUESTS} "
+          f"requests in {wall_s * 1e3:.1f} ms (round wall), rounds "
+          f"{snap['rounds']} (cross-model {snap['cross_model_rounds']}, "
+          f"strategies {snap['round_strategies']}, max groups "
+          f"{snap['max_round_groups']}), devices per batch "
+          f"{sorted(collections.Counter(r.n_devices for r in results).items())}"
+          f", worst max|d torch| / scale {worst:.2e}, host stage "
+          f"{snap['host_busy_s'] * 1e3:.2f} ms, device stage "
+          f"{snap['device_busy_s'] * 1e3:.2f} ms, launches {counts}; {card}")
+
+    # (b) the launcher as two processes on the card, and as one
+    if device == "cuda":
+        mode = compute_mode()
+        print(f"mesh pair: the card's compute mode is {mode}")
+        if "exclusive" in mode.lower():
+            raise SystemExit(f"mesh pair: compute mode {mode} refuses a "
+                             f"second process on the card")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import multiprocess_check_torch as mpcheck
+    work = os.path.join(ROOT, "build", "mesh_pair")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    common = ["--models", *launch_models, "--buckets", "8", "--requests",
+              str(MESH_REQUESTS), "--seed", str(seed), *launch_extra]
+    single_json = os.path.join(work, "single.json")
+    t0 = time.perf_counter()
+    single_proc = mpcheck.launch([*common, "--mesh", str(MESH_DEVICES),
+                                  "--json", single_json], MESH_DEVICES)
+    try:
+        coord, worker = mpcheck.run_pair(common, work, timeout=600)
+    finally:
+        (rc, out, err), = mpcheck.drain({"single": single_proc},
+                                        timeout=600).values()
+    if rc != 0:
+        raise SystemExit(f"mesh single-process launcher exited with {rc}:"
+                         f"\n{err[-4000:]}")
+    with open(single_json) as f:
+        single = json.load(f)
+    verdicts = mpcheck.checks(single, coord, worker, MESH_REQUESTS, device)
+    mp, w = coord.get("multiprocess", {}), worker["worker"]
+    wcache = worker["compilation"]["persistent"]
+    ccache = coord["compilation"]["persistent"]
+    print(f"mesh pair: coordinator and worker (2 logical devices each) and "
+          f"one process over {MESH_DEVICES}, at once, in "
+          f"{time.perf_counter() - t0:.1f} s; rounds broadcast "
+          f"{mp.get('rounds_broadcast')} ({mp.get('broadcast_bytes')} bytes),"
+          f" shards gathered {mp.get('shards_gathered')} "
+          f"({mp.get('gather_bytes')} bytes), worker parts "
+          f"{w['parts_executed']}, warmed {w['warmup_entries_warmed']}; "
+          f"build cache: coordinator {ccache['misses']} misses "
+          f"({ccache['compile_s']:.1f} s of nvcc), worker {wcache['hits']} "
+          f"hits {wcache['misses']} misses; logits_sha256 pair "
+          f"{coord['logits_sha256'][:16]} single "
+          f"{single['logits_sha256'][:16]}")
+    for name, snap_ in (("pair", coord), ("single", single)):
+        e2e = snap_["e2e"]
+        print(f"mesh {name}: {snap_['completed']} completed, rounds "
+              f"{snap_['rounds']}, wall "
+              f"{snap_['completed'] / snap_['throughput_ips'] * 1e3:.1f} ms, "
+              + ", ".join(f"{k} e2e p50 {st['p50_ms']:.2f} p95 "
+                          f"{st['p95_ms']:.2f} ms"
+                          for k, st in sorted(e2e.items())) + f"; {card}")
+    for name, ok in sorted(verdicts.items()):
+        print(f"mesh pair check {'PASS' if ok else 'FAIL'} {name}")
+    failed = [name for name, ok in verdicts.items() if not ok]
+    if failed or "multiprocess" not in coord:
+        raise SystemExit(f"mesh pair: checks failed {failed}")
+    print(f"mesh: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def zoo_report(pair_counts, rows, notes) -> dict:
     """Phase 3's zoo-wide report: each distinct bucket-8 shape's row, the
     sums Σ launches x ms, x bound and x library per (network, variant) and
@@ -2881,6 +3193,12 @@ def main() -> int:
 
     # -- 12. lm_train --------------------------------------------------------
     trained = lm_train_phase(args.seed, card=card)
+    torch.cuda.empty_cache()
+
+    # -- 13. mesh ------------------------------------------------------------
+    mesh_counts = mesh_phase(args.seed, card=card)
+    for name in ("matmul", "fuse1d", "depthwise_kxk", "fuseconv_fused"):
+        report[name]["mesh_launches"] = mesh_counts[name]
 
     # the temporal form's rows: each (dtype, shape, form) at which phases 9,
     # 10 and 12 launched fuse1d (the cuda generates' prefills, the FuSe stem

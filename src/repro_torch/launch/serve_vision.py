@@ -33,9 +33,29 @@ unset: ``build/kernels``) is where the CUDA kernel libraries are built
 and found, and ``--warmup-manifest`` persists the warmed (model, bucket)
 set on a cold start and replays it on the next.  A second process on the
 same directory and manifest builds no kernel; the printed ``compile ...``
-line reports the build cache's hits and misses.  The flags and the JSON
-snapshot's keys are the reference launcher's; meshes and multi-process
-serving are not ported and their flags exit with a message.
+line reports the build cache's hits and misses.
+
+``--mesh N`` builds a 1-D data mesh of N devices (``launch.mesh``) and
+turns on the cross-model round scheduler: each dispatch co-schedules one
+bucketed batch per model onto device groups of the mesh, and batches
+stripe over their group.  N devices are N cards unless
+``REPRO_TORCH_VIRTUAL_DEVICES`` asks for logical ones, which share the
+cards (each with a CUDA stream of its own) or the CPU:
+
+  REPRO_TORCH_VIRTUAL_DEVICES=4 python -m repro_torch.launch.serve_vision \
+      --mesh 4
+
+Multi-process data parallelism: give every process the same command plus
+``--coordinator HOST:PORT --num-processes P --process-id I`` (or the
+``JAX_COORDINATOR_ADDRESS`` / ``REPRO_NUM_PROCESSES`` /
+``REPRO_PROCESS_ID`` environment trio, the reference launcher's).
+``--mesh`` then counts *local* devices per process and rounds plan over
+the ``mesh x num-processes`` logical universe; process 0 hosts the
+coordination store and runs the scheduler and traffic, every other
+process runs the worker follower loop and reports its stripe and
+warm-join accounting as its snapshot.  The processes share no process
+group, so they may share one card.  The flags and the JSON snapshot's
+keys are the reference launcher's.
 """
 from __future__ import annotations
 
@@ -48,18 +68,39 @@ import json
 # without importing torch; create_engine re-validates at runtime
 ENGINE_CHOICES = ("pipelined", "sync")
 
-# flags of the reference launcher that the port does not serve yet, and
-# the ROADMAP item (Queue 1) that will port them
-NOT_PORTED = {
-    "mesh": "--mesh (device meshes) is not ported yet: ROADMAP Queue 1 "
-            "item 4.2",
-    "coordinator": "--coordinator (multi-process serving) is not ported "
-                   "yet: ROADMAP Queue 1 item 7",
-    "num_processes": "--num-processes (multi-process serving) is not "
-                     "ported yet: ROADMAP Queue 1 item 7",
-    "process_id": "--process-id (multi-process serving) is not ported "
-                  "yet: ROADMAP Queue 1 item 7",
-}
+
+def run_worker_process(args, spec, client, mp_mesh, registry):
+    """Worker (process id > 0) service loop: no engine, no traffic — the
+    process publishes its mesh fingerprint, follows the coordinator's
+    message channel (warmup broadcast, round specs, stop sentinel), and
+    reports the accounting the multiprocess check reads: stripe
+    executions plus the kernel build cache's counters, which show that a
+    worker sharing the coordinator's cache directory ran no nvcc."""
+    from repro_torch.serving.vision import (persistent_cache_counters,
+                                            publish_mesh_fingerprint,
+                                            run_worker)
+    fp = publish_mesh_fingerprint(client, mp_mesh)
+    stats = run_worker(client, mp_mesh, registry)
+    pc = persistent_cache_counters()
+    snap = {
+        "mode": "worker",
+        "process_id": spec.process_id,
+        "num_processes": spec.num_processes,
+        "mesh_fingerprint": fp,
+        "mesh_devices": mp_mesh.global_size,
+        "local_devices": mp_mesh.n_local,
+        "worker": stats,
+        "compilation": {"cache_dir": registry.compilation_cache_dir,
+                        "persistent": pc},
+    }
+    print(f"worker {spec.process_id}/{spec.num_processes} "
+          f"rounds={stats['rounds_seen']} parts={stats['parts_executed']} "
+          f"warmed={stats['warmup_entries_warmed']} "
+          f"pcache_hits={pc['hits']} pcache_misses={pc['misses']}")
+    print(json.dumps(snap, indent=2, sort_keys=True))
+    if args.json_path:
+        with open(args.json_path, "w") as f:
+            json.dump(snap, f, indent=2, sort_keys=True)
 
 
 def build_network(name: str, resolution: int = 0):
@@ -87,12 +128,24 @@ def main(argv=None):
     ap.add_argument("--resolution", type=int, default=0,
                     help="override network input resolution (0 = native)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="not ported: must be 0 (one device)")
-    ap.add_argument("--coordinator", default=None, help="not ported")
+                    help="serve over this many devices (1-D data mesh +"
+                         " cross-model round scheduler; 0 = off).  More"
+                         " than the visible cards (or, on the CPU, than 1)"
+                         " needs REPRO_TORCH_VIRTUAL_DEVICES=N.  With"
+                         " --num-processes this counts LOCAL devices per"
+                         " process; rounds plan over the"
+                         " mesh x num-processes logical universe")
+    ap.add_argument("--coordinator", default=None,
+                    help="multi-process serving: coordinator HOST:PORT,"
+                         " where process 0 hosts the coordination store"
+                         " (overrides JAX_COORDINATOR_ADDRESS)")
     ap.add_argument("--num-processes", type=int, default=None,
-                    help="not ported")
+                    help="multi-process serving: total process count"
+                         " (overrides REPRO_NUM_PROCESSES)")
     ap.add_argument("--process-id", type=int, default=None,
-                    help="not ported")
+                    help="multi-process serving: this process's id; 0 runs"
+                         " the scheduler, others the worker follower loop"
+                         " (overrides REPRO_PROCESS_ID)")
     ap.add_argument("--buckets", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--slo-ms", type=float, default=None,
                     help="per-request SLO for admission control (calibrated"
@@ -105,13 +158,18 @@ def main(argv=None):
                          " mean-based admit")
     ap.add_argument("--round-planner", default="adaptive",
                     choices=["fifo", "adaptive", "hybrid"],
-                    help="cross-model round composition strategy (the"
-                         " cost model's; rounds need --mesh, which is not"
-                         " ported)")
+                    help="cross-model round composition: 'adaptive' scores"
+                         " serial/even/uneven splits in calibrated wall-ms"
+                         " and picks the cheapest; 'hybrid' additionally"
+                         " scores uneven splits whose groups host several"
+                         " models back-to-back (priced at the admission"
+                         " quantile); 'fifo' always deals models onto the"
+                         " structural even split")
     ap.add_argument("--replan", action="store_true",
-                    help="mid-flight replanning (needs cross-model rounds,"
-                         " which the launcher turns on only with a mesh:"
-                         " reported as off)")
+                    help="mid-flight replanning: backfill device groups"
+                         " OBSERVED complete (readiness probe) with the"
+                         " next warm FIFO-eligible batch (needs the"
+                         " cross-model rounds --mesh turns on)")
     ap.add_argument("--probe-interval-ms", type=float, default=0.2,
                     help="pause between readiness-probe polls while the"
                          " replanner watches a dispatched round")
@@ -146,8 +204,8 @@ def main(argv=None):
                          " them instead of running nvcc")
     ap.add_argument("--warmup-manifest", default=None,
                     help="warmup-manifest JSON path: persist the warmed"
-                         " (model, bucket) set on cold start and replay it"
-                         " on restart")
+                         " (model, bucket, group) set on cold start and"
+                         " replay it on restart")
     ap.add_argument("--max-in-flight", type=int, default=2,
                     help="pipelined executor's bound on outstanding batches")
     ap.add_argument("--warm-bursts", type=int, default=0,
@@ -159,9 +217,7 @@ def main(argv=None):
                     help="write the metrics snapshot to this path")
     args = ap.parse_args(argv)
 
-    for flag, message in NOT_PORTED.items():
-        if getattr(args, flag) not in (None, 0):
-            raise SystemExit(message)
+    import os
 
     import numpy as np
 
@@ -193,8 +249,61 @@ def main(argv=None):
             name, pattern=pattern, rate_rps=float(rate), slo_class=cls,
             slo_ms=float(fields[4]) if len(fields) == 5 else None))
 
+    # the multi-process topology resolves (and fails readably) before
+    # any device is touched; any of the three flags — or the env trio —
+    # opts in
+    from repro_torch.launch.distributed import (DistributedConfigError,
+                                                ENV_NUM_PROCESSES,
+                                                initialize_distributed,
+                                                resolve_spec)
+    from repro_torch.launch.mesh import (make_data_mesh,
+                                         make_multiprocess_data_mesh)
+    spec = None
+    if (args.coordinator or args.num_processes is not None
+            or args.process_id is not None
+            or os.environ.get(ENV_NUM_PROCESSES)):
+        try:
+            spec = resolve_spec(args.coordinator, args.num_processes,
+                                args.process_id)
+        except DistributedConfigError as e:
+            raise SystemExit(f"multi-process serving: {e}")
+        if spec.num_processes == 1:
+            spec = None  # degenerate topology: plain single-process serving
+
+    mesh = None
+    mp_mesh = None
+    client = None
+    if spec is not None:
+        if not args.mesh:
+            raise SystemExit("multi-process serving needs --mesh N (local"
+                             " devices per process); rounds plan over"
+                             " mesh x num-processes")
+        if engine_name == "sync":
+            raise SystemExit("multi-process serving needs the pipelined "
+                             "executor; drop --sync / --engine sync")
+        if args.replan:
+            raise SystemExit("--replan is not supported with multi-process"
+                             " serving (workers execute published rounds"
+                             " as planned)")
+        try:
+            mp_mesh = make_multiprocess_data_mesh(
+                spec.num_processes, spec.process_id, args.mesh, args.device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        client = initialize_distributed(spec, mode="coordination")
+        mesh = mp_mesh.local_mesh
+    elif args.mesh:
+        try:
+            mesh = make_data_mesh(args.mesh, args.device)
+        except ValueError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+        if engine_name == "sync":
+            raise SystemExit("--mesh needs the pipelined executor; "
+                             "drop --sync / --engine sync")
+
     registry = ModelRegistry(backend=args.backend, device=args.device,
-                             compilation_cache_dir=args.compilation_cache_dir)
+                             compilation_cache_dir=args.compilation_cache_dir,
+                             mesh=mesh)
     for entry in args.models:
         name, sep, variant = entry.rpartition("/")
         if not sep or not name:
@@ -204,17 +313,31 @@ def main(argv=None):
         net = build_network(name, args.resolution)
         registry.register(net, variant, key=entry)
 
+    if spec is not None and not spec.is_coordinator:
+        run_worker_process(args, spec, client, mp_mesh, registry)
+        return
+
+    coord = None
+    if spec is not None:
+        from repro_torch.serving.vision import MultiprocessCoordinator
+        coord = MultiprocessCoordinator(client, mp_mesh, registry)
+        coord.check_mesh_agreement()
+
     if not 0.0 < args.admission_quantile < 1.0:
         raise SystemExit("--admission-quantile must be in (0, 1)")
     calibrator = LatencyCalibrator(min_samples=args.min_calibration_samples)
     engine = create_engine(
         registry, engine_name, cost_model=SystolicCostModel(
-            calibrator=calibrator, n_devices=1,
+            calibrator=calibrator,
+            n_devices=mp_mesh.global_size if mp_mesh else (args.mesh or 1),
             round_planner=args.round_planner,
-            admission_quantile=args.admission_quantile),
+            admission_quantile=args.admission_quantile,
+            group_granularity=spec.num_processes if spec else 1),
         buckets=args.buckets, max_in_flight=args.max_in_flight,
         replan=args.replan, probe_interval_ms=args.probe_interval_ms,
-        shed=args.shed)
+        shed=args.shed, **({"multiprocess": coord} if coord else {}))
+    if coord is not None:
+        coord.metrics = engine.metrics
     try:
         engine.warmup(manifest_path=args.warmup_manifest)
 
@@ -262,17 +385,19 @@ def main(argv=None):
           f"warmup_ms={comp.get('warmup_ms', 0.0):.1f}")
     snap["calibration"] = calibrator.snapshot()
     snap["mode"] = engine_name
-    snap["mesh_devices"] = 1
-    snap["num_processes"] = 1
+    snap["mesh_devices"] = mp_mesh.global_size if mp_mesh else (args.mesh
+                                                                or 1)
+    snap["num_processes"] = spec.num_processes if spec else 1
     snap["round_planner"] = args.round_planner
-    # order-stable digest of every served logit tensor
+    # order-stable digest of every served logit tensor: the multiprocess
+    # check compares this against a single-process run of the same burst
     digest = hashlib.sha256()
     for r in sorted(results, key=lambda r: r.rid):
         if r.logits is not None:
             digest.update(np.ascontiguousarray(r.logits).tobytes())
     snap["logits_sha256"] = digest.hexdigest()
     # the engine's resolved flag, not the CLI's: replanning needs the
-    # cross-model round scheduler, which the launcher does not turn on
+    # cross-model round scheduler, so --replan without --mesh stays off
     snap["replan"] = bool(engine.replan)
     snap["admission_quantile"] = args.admission_quantile
     snap["shed_enabled"] = bool(args.shed)
@@ -287,6 +412,9 @@ def main(argv=None):
         with open(args.json_path, "w") as f:
             json.dump(snap, f, indent=2, sort_keys=True)
     engine.close()
+    if coord is not None:
+        # engine drained first; then release the workers
+        coord.stop_workers()
 
 
 if __name__ == "__main__":

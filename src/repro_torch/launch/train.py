@@ -22,7 +22,8 @@ import os
 
 NOT_PORTED = {
     flag: f"--{flag.replace('_', '-')} (multi-host training) is not ported "
-          f"yet: ROADMAP Queue 1 items 7 and 4.2"
+          f"yet: ROADMAP Queue 1 items 7 and 4.2 (training across "
+          f"processes, LM sharding)"
     for flag in ("distributed", "coordinator", "num_processes",
                  "process_id", "multi_pod")}
 

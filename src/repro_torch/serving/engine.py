@@ -50,7 +50,8 @@ class ServeEngine:
         if policy is not None:
             raise NotImplementedError(
                 "ServeEngine: a sharding policy is not ported yet "
-                "(launch/sharding.py, ROADMAP Queue 1 item 4.2)")
+                "(launch/sharding.py, ROADMAP Queue 1 item 4.2, LM "
+                "sharding)")
         self.model = model
         self.cfg = model.cfg
         self.params = params

@@ -15,10 +15,11 @@ Quick start::
 
 Every engine conforms to ``interface.ServingEngine`` (submit / poll /
 stream_results / warmup / snapshot / close).  Port of
-``repro.serving.vision`` on one device, with the kernel build cache
+``repro.serving.vision``, with the kernel build cache
 (``ModelRegistry(compilation_cache_dir=...)``) and the warmup manifest
-(``engine.warmup(manifest_path=...)``); meshes and multi-process serving
-are not ported.
+(``engine.warmup(manifest_path=...)``).  ``ModelRegistry(mesh=
+launch.mesh.make_data_mesh(n))`` serves over a data mesh with cross-model
+rounds; ``multiproc.py`` spreads that mesh over processes.
 """
 from repro_torch.serving.vision.batcher import (DEFAULT_BUCKETS, Batch,
                                                 RequestQueue, VisionRequest,
@@ -43,6 +44,14 @@ from repro_torch.serving.vision.interface import (ENGINES,
                                                   register_engine)
 from repro_torch.serving.vision.metrics import (LatencyStat, ServeMetrics,
                                                 percentile)
+from repro_torch.serving.vision.multiproc import (LocalExec,
+                                                  MultiprocessCoordinator,
+                                                  PartHandle,
+                                                  local_exec_plan,
+                                                  publish_mesh_fingerprint,
+                                                  run_worker,
+                                                  slice_local_rows,
+                                                  stitch_shards)
 from repro_torch.serving.vision.registry import (BatchLogits, ModelRegistry,
                                                  RegisteredModel,
                                                  default_model_key,
@@ -65,7 +74,8 @@ from repro_torch.serving.vision.traffic import (ARRIVAL_PATTERNS, TenantSpec,
 __all__ = [
     "ARRIVAL_PATTERNS", "Batch", "BatchLogits", "BucketPlan",
     "DEFAULT_BUCKETS", "DEFAULT_CLASS", "DEFAULT_QUANTILES", "ENGINES",
-    "LatencyCalibrator", "LatencyStat", "ModelRegistry", "P2Quantile",
+    "LatencyCalibrator", "LatencyStat", "LocalExec", "ModelRegistry",
+    "MultiprocessCoordinator", "P2Quantile", "PartHandle",
     "PipelinedVisionEngine", "QuantileSketch", "ReadinessProbe",
     "RegisteredModel", "RequestQueue", "RoundPart", "RoundPlan", "SLOClass",
     "SLO_CLASSES", "ServeMetrics", "ServingEngine", "SyncVisionEngine",
@@ -73,9 +83,11 @@ __all__ = [
     "VisionResult", "VisionServeEngine", "class_priority", "class_weight",
     "create_engine", "default_model_key", "device_groups",
     "device_groups_sized", "enable_compilation_cache", "fit_image",
-    "form_batch", "form_round", "jain_fairness", "make_mixed_burst",
-    "make_tenant_trace", "percentile", "persistent_cache_counters",
-    "power_of_two_partitions", "register_engine", "round_groups",
-    "slo_class", "stream_items", "stream_mixed_burst", "submit_mixed_burst",
+    "form_batch", "form_round", "jain_fairness", "local_exec_plan",
+    "make_mixed_burst", "make_tenant_trace", "percentile",
+    "persistent_cache_counters", "power_of_two_partitions",
+    "publish_mesh_fingerprint", "register_engine", "round_groups",
+    "run_worker", "slice_local_rows", "slo_class", "stitch_shards",
+    "stream_items", "stream_mixed_burst", "submit_mixed_burst",
     "submit_trace", "uneven_sizes", "z_score",
 ]

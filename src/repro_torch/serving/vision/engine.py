@@ -1,7 +1,8 @@
 """VisionServeEngine: batched FuSeConv inference with cost-model scheduling
-and an async pipelined executor.
+and an async pipelined executor; under a device mesh, a cross-model round
+scheduler stripes batches over device groups.
 
-Port of ``repro.serving.vision.engine`` for one device.  Units: every
+Port of ``repro.serving.vision.engine``.  Units: every
 latency in this module is **wall milliseconds** measured on ``clock``
 (``time.perf_counter`` unless a test injects a fake); the cost model's
 ``predicted_ms`` may be raw **accelerator-ms** before calibration
@@ -35,14 +36,27 @@ Request lifecycle:
       batching of batch N+1 overlaps device execution of batch N without
       ever racing unboundedly ahead of the device.
 
-  cross-model rounds (``cross_model=True``) — each cycle the scheduler
-  snapshots every model with queued work, asks the cost model for a
-  ``RoundPlan`` (one bucket per model), pops all models atomically and
-  ships the round as ONE pipeline unit (one ``max_in_flight`` slot): the
-  device thread dispatches every part back to back, the completer waits
-  on each part in turn and fans results back to per-request futures.
-  Each part's measured latency is charged from the round's service start
-  to that part's readiness.  On one device every round has one group.
+  cross-model rounds (``cross_model=True``, the default whenever the
+  registry carries a mesh) — the ST-OS row mapping lifted to the mesh:
+  as the paper maps *independent* 1-D convolutions onto rows of the
+  systolic array, the scheduler maps independent models' batches onto
+  device groups of the mesh.  Each cycle it snapshots every model with
+  queued work, asks the cost model for a ``RoundPlan`` (one bucket per
+  model; the adaptive planner scores even/uneven/serial group
+  compositions in calibrated wall-ms, round latency = slowest group),
+  pops all models atomically and ships the round as ONE pipeline unit
+  (one ``max_in_flight`` slot): the device thread dispatches every part
+  back to back (each group's stripes on its devices' own streams, so
+  parts on different groups overlap on the card), the completer waits on
+  each part in turn and fans results back to per-request futures.  Each
+  part's measured latency is charged from the round's service start to
+  that part's readiness.  Without a mesh every round has one group.
+
+  multi-process serving (``multiprocess=``, see ``multiproc.py``) — the
+  engine runs on process 0 and schedules over the logical universe of
+  every process's devices; the device thread broadcasts each round's
+  spec through the coordination store before dispatching its own
+  stripes, and the completer gathers and stitches the workers' shards.
 
   reactive mid-flight replanning (``replan=True``, rounds only) — right
   after dispatching a round the device thread polls each group's outputs
@@ -71,8 +85,6 @@ submission, so composition depends on the arrival/execution interleaving
 results are the same in either case — composition only moves batch
 boundaries.
 
-Not ported (the constructor refuses them): meshes and device groups over
-several devices, and multi-process serving.
 """
 from __future__ import annotations
 
@@ -97,7 +109,9 @@ from repro_torch.serving.vision.compilecache import (
 from repro_torch.serving.vision.costmodel import (BucketPlan,
                                                   SystolicCostModel)
 from repro_torch.serving.vision.metrics import ServeMetrics
-from repro_torch.serving.vision.registry import ModelRegistry
+from repro_torch.serving.vision.registry import (ModelRegistry,
+                                                 device_groups,
+                                                 device_groups_sized)
 from repro_torch.serving.vision.tenancy import class_priority, class_weight
 from repro_torch.serving.vision.tenancy import slo_class as resolve_slo_class
 
@@ -148,7 +162,7 @@ class VisionResult:
     bucket: int = 0
     batch_fill: int = 0
     calibrated: bool = False          # predicted_ms was calibrated wall-ms
-    n_devices: int = 1                # devices the batch ran on
+    n_devices: int = 1                # devices the batch was striped over
     error: Optional[str] = None       # exception text for status "error"
     slo_class: str = "batch"          # tenancy (see tenancy.py)
     tenant: Optional[str] = None
@@ -186,7 +200,7 @@ class _Prepared:
     """A formed batch travelling through the submit/complete queues."""
     batch: Batch
     plan: BucketPlan
-    devices: Optional[tuple] = None   # device group (always None here)
+    devices: Optional[tuple] = None   # device group (round scheduler only)
     replanned: bool = False           # mid-flight backfill, not a round part
     group: Optional[int] = None       # round group index (readiness probing)
 
@@ -195,7 +209,7 @@ class _Prepared:
 class _Round:
     """A co-scheduled cross-model round travelling as ONE pipeline unit
     (one ``max_in_flight`` slot, one in-flight increment).  ``groups`` and
-    ``group_ms`` (device groups — None on one device — and predicted
+    ``group_ms`` (device groups — None without a mesh — and predicted
     per-group serial sums, in group order) feed the mid-flight replanner:
     the gap between a group's predicted end and the round's predicted end
     is backfillable idle."""
@@ -241,21 +255,53 @@ class VisionServeEngine:
                  probe_interval_ms: float = 0.2,
                  shed: bool = False,
                  multiprocess=None):
-        devices = getattr(registry, "devices", None)
-        refused = [name for name, on in (
-            ("multiprocess serving", multiprocess is not None),
-            ("a registry mesh", getattr(registry, "mesh", None) is not None),
-            (f"a registry over {len(devices or ())} devices",
-             devices is not None and len(devices) > 1)) if on]
-        if refused:
-            raise ValueError(f"VisionServeEngine: {', '.join(refused)} not "
-                             f"ported yet; the port serves on one device")
         self.registry = registry
+        # mesh comes in through the registry (it owns placement); the
+        # engine owns scheduling over its device list
+        self._devices = getattr(registry, "devices", None)
+        # multi-process serving (see multiproc.py): the engine runs on
+        # process 0 only and schedules over the LOGICAL universe spanning
+        # every process — groups are broadcast per round, each process
+        # executes its addressable stripe, shards are stitched by the
+        # completer.  The registry keeps the process-local mesh.
+        self.multiprocess = multiprocess
+        if multiprocess is not None:
+            if not pipelined:
+                raise ValueError(
+                    "multiprocess serving requires the pipelined engine "
+                    "(rounds are broadcast from the device thread)")
+            self._devices = multiprocess.universe
+            cross_model = True
+            # mid-flight replanning keys off per-group readiness; a
+            # cross-process part's readiness lives on other processes, so
+            # replanning is disabled rather than half-observed
+            replan = False
+        ndev = len(self._devices) if self._devices else 1
         self.cost_model = cost_model or SystolicCostModel(
-            calibrator=LatencyCalibrator(), n_devices=1)
-        # cross-model rounds default on only under a mesh, which the port
-        # does not have; they work on one device when asked for
-        self.cross_model = bool(cross_model)
+            calibrator=LatencyCalibrator(), n_devices=ndev)
+        # cross-model rounds default on whenever a mesh is present; they
+        # also work without one (rounds of size |models| on one device)
+        self.cross_model = (self._devices is not None
+                            if cross_model is None else bool(cross_model))
+        cm_ndev = getattr(self.cost_model, "n_devices", None)
+        if self._devices is not None and cm_ndev is not None \
+                and cm_ndev != ndev:
+            # a planner sized for a different mesh would hand the round
+            # scheduler group counts that don't partition the device list
+            raise ValueError(
+                f"cost model plans for {cm_ndev} device(s) but the "
+                f"registry mesh has {ndev}; construct the cost model with "
+                f"n_devices={ndev}")
+        if multiprocess is not None:
+            gran = getattr(self.cost_model, "group_granularity", 1)
+            n_procs = multiprocess.mesh.num_processes
+            if gran != n_procs:
+                # a group that does not span every process with equal
+                # stripes cannot be executed by the stripe protocol
+                raise ValueError(
+                    f"multiprocess serving over {n_procs} processes needs "
+                    f"a cost model with group_granularity={n_procs}, got "
+                    f"{gran}")
         self.buckets = tuple(sorted(buckets))
         self.metrics = metrics or ServeMetrics(clock)
         self._clock = clock
@@ -373,9 +419,23 @@ class VisionServeEngine:
                slo_ms: float) -> Tuple[bool, float]:
         """One admission check against the CURRENT queue + in-flight state
         (re-run after each shed eviction)."""
+        extra = {}
+        if self.cross_model and self._devices \
+                and hasattr(self.cost_model, "plan_round"):
+            # price this model's own drain on the device group the
+            # round planner would assign it right now — the full mesh
+            # would under-predict (and over-admit) whenever rounds
+            # split the mesh across active models
+            from repro_torch.serving.vision.costmodel import round_groups
+            active = {m for m, _, _ in self._queue.snapshot()}
+            active.add(model_key)
+            ndev = len(self._devices)
+            gran = getattr(self.cost_model, "group_granularity", 1)
+            extra["group_size"] = ndev // round_groups(len(active), ndev,
+                                                       gran)
         return self.cost_model.admit(
             model, slo_ms, self._queue.pending(model_key), self.buckets,
-            self._backlog_ms(model_key))
+            self._backlog_ms(model_key), **extra)
 
     def _resolve_shed(self, req: VisionRequest) -> None:
         """Resolve an evicted queued request with status "shed"."""
@@ -550,8 +610,17 @@ class VisionServeEngine:
                 plan_kw["weights"] = weights
             rplan = self.cost_model.plan_round(models, self.buckets,
                                                **plan_kw)
-            # one device: every group is the device itself
-            groups = [None] * rplan.n_groups
+            # resolved before any request is popped: a plan whose group
+            # count can't partition the device list must fail HERE, where
+            # containment below still owns every queued request
+            sizes = getattr(rplan, "group_sizes", None)
+            if self._devices is None:
+                groups = [None] * rplan.n_groups
+            elif sizes is not None:
+                # adaptive plans carry explicit (possibly uneven) sizes
+                groups = device_groups_sized(self._devices, sizes)
+            else:
+                groups = device_groups(self._devices, rplan.n_groups)
         except Exception as exc:
             # planner failure: fail everything currently queued rather than
             # retrying the same exception forever (same invariant as the
@@ -716,8 +785,12 @@ class VisionServeEngine:
         for model_key, depth, _ in self._queue.snapshot():
             model = self.registry.get(model_key)
             try:
-                plan = self.cost_model.plan_bucket(model, depth,
-                                                   self.buckets)
+                if group is not None:
+                    plan = self.cost_model.plan_bucket(
+                        model, depth, self.buckets, group_size=len(group))
+                else:
+                    plan = self.cost_model.plan_bucket(model, depth,
+                                                       self.buckets)
             except Exception:
                 continue
             if plan.predicted_ms > idle_ms:
@@ -763,14 +836,37 @@ class VisionServeEngine:
                     continue
                 t0 = self._clock()
                 if isinstance(item, _Round):
-                    # dispatch every part back-to-back (dispatch is
-                    # async); the completer blocks on readiness
+                    # dispatch every part back-to-back: dispatch is async,
+                    # so parts on different device groups execute
+                    # concurrently (independent models -> independent
+                    # streams); the completer blocks on readiness.  In
+                    # multiprocess mode the round spec is broadcast FIRST
+                    # so worker stripes start while the coordinator's own
+                    # dispatches are still being issued.
                     outs = []
-                    for p in item.parts:
+                    mp_round = None
+                    if self.multiprocess is not None:
                         try:
-                            logits = self.registry.apply(
-                                p.batch.model, p.batch.images,
-                                devices=p.devices)
+                            mp_round = self.multiprocess.begin_round(
+                                [(p.batch.model, p.batch.images,
+                                  tuple(d.id for d in p.devices))
+                                 for p in item.parts])
+                        except Exception as exc:
+                            for p in item.parts:
+                                outs.append((p, _BatchError(exc),
+                                             self._clock()))
+                            self._complete_q.put((item, outs, t0))
+                            continue
+                    for idx, p in enumerate(item.parts):
+                        try:
+                            if mp_round is not None:
+                                logits = self.multiprocess.dispatch(
+                                    mp_round, idx, p.batch.model,
+                                    p.batch.images, p.devices)
+                            else:
+                                logits = self.registry.apply(
+                                    p.batch.model, p.batch.images,
+                                    devices=p.devices)
                         except Exception as exc:
                             logits = _BatchError(exc)
                         outs.append((p, logits, self._clock()))
@@ -930,9 +1026,46 @@ class VisionServeEngine:
 
     # -- scheduling / execution ---------------------------------------------
     def _reachable_groups(self, n_models: int) -> List[tuple]:
-        """Every device group the round scheduler / replanner can dispatch
-        on: none besides the device itself, which ``warmup`` always warms."""
-        return []
+        """Every device group the round scheduler / replanner can ever
+        dispatch on with ``n_models`` registered models — the entries a
+        process must run once before it is servable."""
+        groups: List[tuple] = []
+        if self.cross_model and self._devices and len(self._devices) > 1 \
+                and hasattr(self.cost_model, "plan_round"):
+            from repro_torch.serving.vision.costmodel import (
+                power_of_two_partitions, round_groups)
+            # group assignment is by FIFO position, so over time a model
+            # can land on ANY group of any reachable partition width —
+            # warm them all, or the first round on a fresh group runs its
+            # entry for the first time under traffic
+            seen = set()
+            gran = getattr(self.cost_model, "group_granularity", 1)
+            widths = {round_groups(m, len(self._devices), gran)
+                      for m in range(1, n_models + 1)}
+            for k_groups in sorted(widths):
+                if k_groups > 1:        # full mesh is warmed by default
+                    for grp in device_groups(self._devices, k_groups):
+                        if grp not in seen:
+                            seen.add(grp)
+                            groups.append(grp)
+            if getattr(self.cost_model, "round_planner",
+                       None) in ("adaptive", "hybrid"):
+                # uneven splits are laid out largest-group-first, so the
+                # reachable layouts are exactly the descending power-of-two
+                # partitions of the mesh into 2..|models| groups.  Hybrid
+                # compositions draw from the SAME set (partitions into
+                # fewer groups than models), so one sweep covers both —
+                # and since replanning may land any model on any group,
+                # prewarm runs every model on every warmed group.
+                for m in range(2, n_models + 1):
+                    for sizes in power_of_two_partitions(
+                            len(self._devices), m, gran):
+                        for grp in device_groups_sized(self._devices, sizes):
+                            if len(grp) < len(self._devices) \
+                                    and grp not in seen:
+                                seen.add(grp)
+                                groups.append(grp)
+        return groups
 
     def warmup(self, keys: Optional[Sequence[str]] = None,
                buckets: Optional[Sequence[int]] = None,
@@ -940,30 +1073,47 @@ class VisionServeEngine:
         """Prewarm every (model, bucket) pair off the serving path: seed the
         cost model's simulator cache, then both pipeline stages (host batch
         formation and one run of the network on the device) via the
-        registry hooks.  The pipelined engine runs the entries on its
-        device thread (started here if traffic has not started it), where
-        PyTorch keeps the per-thread library handles that the device
-        stage will use.
+        registry hooks.  Under the round scheduler this also warms every
+        device group a round can land on (``_reachable_groups``), so the
+        first cross-model round never runs an entry for the first time
+        under traffic.  The pipelined engine runs the entries on its device
+        thread (started here if traffic has not started it), where PyTorch
+        keeps the per-thread library handles that the device stage will
+        use.
 
-        ``manifest_path``: a warm restart.  When the file exists and its
-        fingerprint matches this registry (backend, device, versions and
-        model set), its entry list is replayed instead of deriving the
-        set; otherwise the set is derived, warmed and written there, so
-        the next process replays it.  With the registry's build cache
-        pointed at a kept directory, a replayed start builds no kernel.
-        Returns the warmed entry list as ``(key, bucket, None)`` triples;
-        warm-up wall-ms and the build cache's hit/miss delta land in the
-        metrics snapshot."""
+        ``manifest_path``: a warm restart.  The warmed (model, bucket,
+        device-id group) set is persisted to that JSON file, stamped with
+        the registry's backend fingerprint (and the multiprocess mesh's),
+        and a restarted process replays it instead of deriving the set;
+        with the registry's build cache pointed at a kept directory, a
+        replayed start builds no kernel.  A manifest whose fingerprint does
+        not match is ignored (re-derived and rewritten).  Returns the
+        warmed entry list as ``(key, bucket, device-id tuple | None)``
+        triples; warm-up wall-ms and the build cache's hit/miss delta land
+        in the metrics snapshot.  In multiprocess mode the entries are then
+        broadcast to the workers, which warm their stripes of them."""
         if self._closing or self._closed:
             raise RuntimeError("engine is closed")
         t_w0 = time.perf_counter()
         bks = tuple(buckets) if buckets is not None else self.buckets
         ks = list(keys if keys is not None else self.registry.keys())
         groups = self._reachable_groups(len(ks))
+        if self.multiprocess is not None and self._devices:
+            # the serial strategy dispatches on the full logical universe,
+            # whose per-process stripe entry (local bucket = bucket / P)
+            # differs from the default full-LOCAL-mesh warm — warm it
+            # explicitly like any other group
+            full = tuple(self._devices)
+            if full not in groups:
+                groups = groups + [full]
         for k in ks:
             model = self.registry.get(k)
             for b in bks:
                 self.cost_model.predicted_ms(model, b)
+            for grp in groups:
+                # seed the sharded simulator points (per-device microbatch)
+                self.cost_model.plan_bucket(model, max(bks), bks,
+                                            group_size=len(grp))
         entries: Optional[List[tuple]] = None
         replayed = False
         if manifest_path:
@@ -971,15 +1121,29 @@ class VisionServeEngine:
             replayed = entries is not None
         if entries is None:
             entries = [(k, b, None) for k in ks for b in bks]
+            # stub registries in tests hand out bare ints as devices;
+            # real meshes hand out devices with .id
+            entries += [(k, b, tuple(getattr(d, "id", d) for d in grp))
+                        for k in ks for grp in groups for b in bks]
         before = persistent_cache_counters()
         warm_entry = getattr(self.registry, "warm_entry", None)
         if warm_entry is not None:
             def warm():
                 hosted = set()
                 for k, b, ids in entries:
+                    if self.multiprocess is not None and ids is not None:
+                        # ids name LOGICAL universe devices: warm this
+                        # process's stripe of the group (the same entry
+                        # every worker's stripe resolves to)
+                        self._warm_multiprocess_entry(k, b, ids, hosted)
+                        continue
+                    devs = None
                     if ids is not None:
-                        continue       # a device group: not on one device
-                    warm_entry(k, b, devices=None,
+                        by_id = getattr(self.registry, "devices_by_id", None)
+                        devs = by_id(ids) if by_id else None
+                        if devs is None:
+                            continue       # id set not on this mesh: skip
+                    warm_entry(k, b, devices=devs,
                                host=(k, b) not in hosted)
                     hosted.add((k, b))
             if self.pipelined:
@@ -993,18 +1157,48 @@ class VisionServeEngine:
         delta = counters_delta(before)
         if manifest_path and not replayed:
             self._write_manifest(manifest_path, entries)
+        if self.multiprocess is not None:
+            # broadcast AFTER the coordinator warmed (and built the kernel
+            # libraries), so every worker warm loads them: a pure hit
+            self.multiprocess.broadcast_warmup(
+                self._manifest_fingerprint() or "", entries)
         self.metrics.on_warmup((time.perf_counter() - t_w0) * 1e3,
                                len(entries), replayed,
                                pcache_hits=int(delta["hits"]),
                                pcache_misses=int(delta["misses"]))
         return entries
 
+    def _warm_multiprocess_entry(self, k: str, b: int,
+                                 ids: Sequence[int], hosted: set) -> None:
+        """Warm this process's stripe of one logical (model, bucket,
+        universe-group) entry — the entry round dispatch will actually run,
+        identical (same local device ids, same local bucket) on every
+        process."""
+        from repro_torch.serving.vision.multiproc import local_exec_plan
+        mp = self.multiprocess
+        plan = local_exec_plan(mp.mesh, mp.group_by_ids(ids), b)
+        if plan is None:
+            return
+        self.registry.warm_entry(k, plan.local_bucket,
+                                 devices=plan.devices,
+                                 host=(k, b) not in hosted)
+        hosted.add((k, b))
+
     def _manifest_fingerprint(self) -> Optional[str]:
         """What a warmup manifest is stamped with: the registry's backend
-        fingerprint (None for registries without one, which then neither
-        read nor write a manifest)."""
+        fingerprint, extended with the multiprocess mesh topology when one
+        is attached — a manifest whose group ids name LOGICAL universe
+        devices must never replay into a single-process engine (whose
+        local ids they would silently alias), and vice versa.  None for
+        registries without a fingerprint, which then neither read nor
+        write a manifest."""
         fp_fn = getattr(self.registry, "backend_fingerprint", None)
-        return None if fp_fn is None else fp_fn()
+        if fp_fn is None:
+            return None
+        fp = fp_fn()
+        if self.multiprocess is not None:
+            fp = f"{fp}:{self.multiprocess.mesh.fingerprint()}"
+        return fp
 
     def _load_manifest(self, path: str,
                        ks: Sequence[str]) -> Optional[List[tuple]]:
@@ -1198,6 +1392,10 @@ class VisionServeEngine:
             comp = dict(snap.get("compilation", {}))
             comp.update(stats())
             snap["compilation"] = comp
+        if self.multiprocess is not None:
+            mp = dict(snap.get("multiprocess", {}))
+            mp.update(self.multiprocess.mesh.describe())
+            snap["multiprocess"] = mp
         return snap
 
     # -- shutdown -------------------------------------------------------------

@@ -160,6 +160,15 @@ class ServeMetrics:
         self.warmup_manifest_replayed = False
         self.warmup_pcache_hits = 0
         self.warmup_pcache_misses = 0
+        # multi-process rounds (coordinator side): round plans broadcast
+        # to workers over the coordination KV store, logit shards gathered
+        # back, and the control-plane bytes each direction moved — the
+        # cross-process scheduler's data plane is process-local, so these
+        # bytes ARE its entire network footprint
+        self.mp_rounds_broadcast = 0
+        self.mp_shards_gathered = 0
+        self.mp_broadcast_bytes = 0
+        self.mp_gather_bytes = 0
 
     def reset(self) -> None:
         """Zero every counter/distribution (e.g. after warm-up traffic so a
@@ -220,9 +229,9 @@ class ServeMetrics:
 
     def on_warmup(self, ms: float, entries: int, manifest_replayed: bool,
                   *, pcache_hits: int = 0, pcache_misses: int = 0) -> None:
-        """One warmup pass finished: ``entries`` (model, bucket) entries
-        run once in ``ms`` wall-ms, observing the given kernel build cache
-        hit/miss delta.  Cumulative across passes (warmup may be re-run
+        """One warmup pass finished: ``entries`` (model, bucket[, group])
+        entries run once in ``ms`` wall-ms, observing the given kernel build
+        cache hit/miss delta.  Cumulative across passes (warmup may be re-run
         after registering models)."""
         with self._lock:
             self.warmup_ms += ms
@@ -230,6 +239,19 @@ class ServeMetrics:
             self.warmup_manifest_replayed = bool(manifest_replayed)
             self.warmup_pcache_hits += int(pcache_hits)
             self.warmup_pcache_misses += int(pcache_misses)
+
+    def on_broadcast(self, nbytes: int) -> None:
+        """One round plan broadcast to worker processes (``nbytes`` of
+        spec payload on the coordination KV store)."""
+        with self._lock:
+            self.mp_rounds_broadcast += 1
+            self.mp_broadcast_bytes += int(nbytes)
+
+    def on_shard_gather(self, n_shards: int, nbytes: int) -> None:
+        """Worker logit shards gathered for one round part."""
+        with self._lock:
+            self.mp_shards_gathered += int(n_shards)
+            self.mp_gather_bytes += int(nbytes)
 
     def on_shed(self, slo_class: str) -> None:
         """One queued request shed at admission time to make room for a
@@ -373,6 +395,12 @@ class ServeMetrics:
                 "tenant_completed": dict(self.tenant_completed),
                 "fairness_index": _jain(
                     list(self.tenant_completed.values())),
+                "multiprocess": {
+                    "rounds_broadcast": self.mp_rounds_broadcast,
+                    "shards_gathered": self.mp_shards_gathered,
+                    "broadcast_bytes": self.mp_broadcast_bytes,
+                    "gather_bytes": self.mp_gather_bytes,
+                },
                 "compilation": {
                     "warmup_ms": self.warmup_ms,
                     "warmup_entries": self.warmup_entries,

@@ -11,10 +11,9 @@
   cannot change them); the port's record must equal the JAX one.  Both
   packages are parametrised, so every case counts once per package.
   ``test_serve_async.py::test_replan_falls_through_to_the_next_idle_group``
-  needs a registry over three devices, which the port refuses (meshes are
-  not ported); ``test_engine_refuses_meshes_multiprocess_and_manifest``
-  pins that refusal instead, and that the warmup manifest, ported since,
-  is taken.
+  runs over a stub registry of three devices, as the reference's does;
+  ``test_engine_refuses_meshes_multiprocess_and_manifest`` pins what the
+  engine still refuses, and that the warmup manifest is taken.
 * **Real models.**  ``tiny_net(resolution=16, width=8)`` in ``depthwise``,
   ``fuse_half`` and ``fuse_full`` on one parameter tree
   (``_torch_params.numpy_params``): the port's pipelined engine
@@ -463,6 +462,31 @@ def sc_replan_backfills_idle_group_with_warm_batches(p):
                 partials=[k for k, _, _ in cm.partials])
 
 
+def sc_replan_falls_through_to_the_next_idle_group(p):
+    class ColdGroup0Registry(StubRegistry):
+        devices = (0, 1, 2)
+
+        def is_compiled(self, key, bucket, devices=None):
+            return devices != (0,)
+
+    reg = ColdGroup0Registry(keys=("a", "c", "b"))
+    engine = p.sv.VisionServeEngine(
+        reg, cost_model=Stub3GroupCostModel(), buckets=(1,),
+        clock=FakeClock(), cross_model=True, replan=True)
+    rnd, outs, t0 = _drive_round(p, engine, reg, ["a", "c", "b", "a"])
+    assert engine._queue.pending() == 1          # the extra 'a'
+    engine._replan_round(rnd, outs, t0)
+    extra = [prep for prep, _, _ in outs if prep.replanned]
+    assert len(extra) == 1
+    assert extra[0].devices == (1,)              # backfilled g1, not cold g0
+    record = _replan_record(engine, outs)
+    engine._complete_round(rnd, outs, t0, None)
+    results = sorted(engine._results.values(), key=lambda r: r.rid)
+    engine.close()
+    return dict(record, results=_rows(results),
+                devices=[prep.devices for prep, _, _ in outs])
+
+
 def sc_replan_only_dispatches_batches_that_fit_the_idle_window(p):
     reg = StubRegistry(keys=("a", "b"))
     engine = _replan_engine(p, reg)
@@ -702,19 +726,34 @@ def test_scenario_pins():
 # ---------------------------------------------------------------------------
 
 def test_engine_refuses_meshes_multiprocess_and_manifest(tmp_path):
-    """Meshes and multi-process serving are refused; the warmup manifest
-    is ported: a registry without a fingerprint (a stub) warms the derived
-    set and neither reads nor writes a manifest, as the reference's
-    engine does."""
+    """A registry mesh is taken (cross-model rounds on by default) unless
+    the cost model plans for another device count; multi-process serving
+    is refused on the sync engine and with a cost model whose group
+    granularity is not the process count, as the reference's engine
+    refuses them.  The warmup manifest: a registry without a fingerprint
+    (a stub) warms the derived set and neither reads nor writes a
+    manifest."""
     class ThreeDeviceRegistry(StubRegistry):
         devices = (0, 1, 2)
 
     reg = ThreeDeviceRegistry(keys=("a", "c", "b"))
-    with pytest.raises(ValueError, match="3 devices"):
-        tsv.VisionServeEngine(reg, cost_model=Stub3GroupCostModel(),
-                              cross_model=True, replan=True)
-    with pytest.raises(ValueError, match="multiprocess"):
-        tsv.VisionServeEngine(StubRegistry(), multiprocess=object())
+    for sv in (jsv, tsv):
+        engine = sv.VisionServeEngine(reg, cost_model=Stub3GroupCostModel())
+        assert engine.cross_model is True
+        engine.close()
+        with pytest.raises(ValueError, match="registry mesh has 3"):
+            sv.VisionServeEngine(reg, cost_model=sv.SystolicCostModel(
+                n_devices=2))
+        with pytest.raises(ValueError, match="multiprocess"):
+            sv.VisionServeEngine(StubRegistry(), multiprocess=object(),
+                                 pipelined=False)
+        mp = types.SimpleNamespace(
+            universe=(0, 1, 2, 3),
+            mesh=types.SimpleNamespace(num_processes=2))
+        with pytest.raises(ValueError, match="group_granularity=2"):
+            sv.VisionServeEngine(StubRegistry(), multiprocess=mp,
+                                 cost_model=sv.SystolicCostModel(
+                                     n_devices=4))
     engine = tsv.VisionServeEngine(StubRegistry(), cost_model=StubCostModel())
     try:
         assert engine.pipelined is True          # the reference's default
@@ -756,6 +795,7 @@ def test_registry_hooks_on_cpu():
     out = reg.apply("tiny_net/depthwise", np.zeros((1, 16, 16, 3),
                                                   np.float32))
     assert out.is_ready() and out.materialize().shape == (1, 10)
+    # groups are the devices of a registry mesh; this one has none
     with pytest.raises(ValueError, match="device groups"):
         reg.apply("tiny_net/depthwise", np.zeros((1, 16, 16, 3), np.float32),
                   devices=(0,))

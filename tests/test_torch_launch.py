@@ -6,12 +6,14 @@
   keeps every plan on the uncalibrated systolic cost model so that neither
   framework's wall times can move it.  Per request: the same status,
   bucket and predicted ms; the snapshots have the same keys, less the
-  jit-entry count and the multi-process keys, whose meaning does not
-  carry over (``NOT_CARRIED``).  Logits are not compared: each launcher draws its own
-  seeded weights (weight-carried logit parity is in test_torch_engine.py).
+  jit-entry count, whose meaning does not carry over (``NOT_CARRIED``).
+  Logits are not compared: each launcher draws its own seeded weights
+  (weight-carried logit parity is in test_torch_engine.py).
 * ``--tenant`` and ``--shed`` run on the pipelined engine.
-* Each flag of what is not ported exits with a one-line message naming
-  its ROADMAP item.
+* The mesh and process flags, ported since (ROADMAP items 4.2 and 7),
+  exit with one line naming what is missing when given alone on a
+  one-device host: the virtual-device variable for ``--mesh``, the rest
+  of the topology for the process flags.
 * ``make_tenant_trace`` gives the JAX package's trace for the same specs
   and seed.
 """
@@ -32,8 +34,7 @@ COMMON = ["--models", "tiny_net/depthwise", "tiny_net/fuse_full",
           "--requests", "8", "--resolution", "16", "--buckets", "1", "2",
           "4", "--engine", "sync", "--min-calibration-samples", "1000"]
 # snapshot keys of the reference with no meaning in the port: jit entries
-# and multi-process counters
-NOT_CARRIED = {"multiprocess", "compilation.jit_entries"}
+NOT_CARRIED = {"compilation.jit_entries"}
 REQ = re.compile(r"^req +(\d+) (\S+) +(\S+) +top1= *-?\d+ bucket=(\d+) "
                  r"predicted= *([\d.]+)(acc-ms|cal-ms)")
 
@@ -91,11 +92,21 @@ def test_tenants_and_shedding_run(tmp_path, capsys):
     ("--num-processes", "2", "7"),
     ("--process-id", "1", "7"),
 ])
-def test_unported_flags_exit_with_their_roadmap_item(flag, value, item):
+def test_unported_flags_exit_with_their_roadmap_item(flag, value, item,
+                                                     monkeypatch):
+    """``item``: the ROADMAP item that ported the flag.  Alone, each flag
+    now exits with one line that says what else it needs."""
+    for var in ("REPRO_TORCH_VIRTUAL_DEVICES", "JAX_COORDINATOR_ADDRESS",
+                "REPRO_NUM_PROCESSES", "REPRO_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    needs = {"--mesh": "REPRO_TORCH_VIRTUAL_DEVICES=2",
+             "--coordinator": "--num-processes",
+             "--num-processes": "--coordinator",
+             "--process-id": "--coordinator"}
     with pytest.raises(SystemExit) as exc:
         tlaunch.main(["--device", "cpu", flag, value])
     message = str(exc.value)
-    assert "not ported" in message and message.endswith(f"item {item}")
+    assert "not ported" not in message and needs[flag] in message
     assert "\n" not in message
 
 

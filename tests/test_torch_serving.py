@@ -8,7 +8,8 @@
   (rtol=atol=1e-4) and batching does not change results.
 * SLO admission rejects exactly as the cost model predicts.
 * ``ModelRegistry()`` asks for CUDA and raises without a card; the engine
-  refuses multi-process serving and meshes, which are not ported.
+  refuses multi-process serving on the sync engine and a cost model sized
+  for another mesh.
 * The port and ``chip_smoke.py`` import neither ``jax`` nor ``repro``
   (every module, ``launch/`` included).
 """
@@ -117,14 +118,18 @@ def test_admission_rejects_as_the_cost_model_predicts():
 
 
 def test_engine_refuses_unported_modes_and_closes():
-    class MeshRegistry(ModelRegistry):
-        mesh = object()
-
+    """What the engine still refuses, as the reference's does: multiprocess
+    serving on the sync engine, and a cost model planning for another
+    device count than the registry's mesh has."""
+    from repro_torch.launch.mesh import make_data_mesh
     with pytest.raises(ValueError, match="multiprocess"):
         VisionServeEngine(ModelRegistry(device="cpu"),
-                          multiprocess=object())
-    with pytest.raises(ValueError, match="mesh"):
-        VisionServeEngine(MeshRegistry(device="cpu"))
+                          multiprocess=object(), pipelined=False)
+    mesh = make_data_mesh(2, device="cpu",
+                          env={"REPRO_TORCH_VIRTUAL_DEVICES": "2"})
+    with pytest.raises(ValueError, match="mesh has 2"):
+        VisionServeEngine(ModelRegistry(mesh=mesh),
+                          cost_model=SystolicCostModel())
     engine = _engine()
     rid = engine.submit("tiny_net/depthwise", np.zeros((8, 8, 3), np.float32))
     engine.close(drain=False)
@@ -158,6 +163,7 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "scripts" / "multiprocess_check_torch.py")
     files.append(ROOT / "examples" / "nos_distillation_torch.py")
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
@@ -180,6 +186,11 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/configs/recurrentgemma_2b.py",
             "src/repro_torch/serving/engine.py",
             "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/distributed.py",
+            "src/repro_torch/launch/env.py",
+            "src/repro_torch/serving/vision/multiproc.py",
+            "scripts/multiprocess_check_torch.py",
             "examples/nos_distillation_torch.py"} <= names
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imported_modules(f)
