@@ -181,10 +181,24 @@ Phases (any failure exits non-zero, and no result line is printed):
             fingerprint, every request ``ok``, equal ``logits_sha256``,
             the worker executed parts and ran no nvcc, the coordinator
             built cold; the card's compute mode is printed first (an
-            exclusive one fails the phase).
+            exclusive one fails the phase);
+14. sharded — ``recurrentgemma_2b`` at its production config in bfloat16
+            (phase 9's seeded init and traffic) served through
+            ``ServeEngine(policy=ShardingPolicy(mesh, cfg))`` on backend
+            ``cuda``, its parameters distributed as DTensors by the policy
+            (``launch.sharding.shard_tree``) over ``make_host_mesh``: a
+            world-1 ``nccl`` group, a 1x1 ("data", "model") mesh (NCCL
+            refuses two ranks on one GPU: the world-4 partitioning is
+            held on the CPU, ``tests/test_torch_sharded_serving.py``);
+            against the unsharded ``cuda`` engine on the same weights:
+            identical tokens, every call's logits within ``LM_BF16_RTOL``
+            (bitwise equality printed), exactly 18 ``fuse1d`` launches per
+            generate, each on a rank's local shard at (4, 64, 2560) K4
+            causal bf16; prefill ms, decode ms per step and peak memory of
+            both engines, and the leaves sharded on "model", printed.
 
 Then the temporal form of ``fuse1d`` at each (dtype, shape, form) the
-``cuda`` generates of phases 9, 10 and 12 and the FuSe stem launched it at
+``cuda`` generates of phases 9, 10, 12 and 14 and the FuSe stem launched it at
 (``fuse1d.by_shape``: RG-2B x (4, 64, 2560), xLSTM (4, 64, 1536) and
 (4, 64, 768) K4 causal, the stem (4, 3000, 384) K3 centred; float32 and
 bfloat16), each checked against its plain version there and at T = 2,
@@ -1193,7 +1207,8 @@ def traced_generate(engine, reqs, sync) -> dict:
             sync()
             log[f"{kind}_s"].append(time.perf_counter() - t0)
             log[f"{kind}_launches"].append(kf1.fuse1d.launches - n0)
-            log[kind].append(logits.cpu())
+            full = getattr(logits, "full_tensor", None)   # a DTensor's
+            log[kind].append((full() if full else logits).cpu())
             return logits, cache
         return call
 
@@ -1406,7 +1421,7 @@ def serve_backends(label, cfg, params, reqs, n_conv, rtol, sync, card):
 def lm_phase(seed: int, device="cuda", card="", smoke=False,
              prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
              launch_extra=(), arch=LM_ARCH, label="lm",
-             fwd_bf16_rtol=LM_BF16_RTOL) -> dict:
+             fwd_bf16_rtol=LM_BF16_RTOL, keep=None) -> dict:
     """Phase 9 (and 10a): ``arch`` (``recurrentgemma_2b``: 26 layers,
     d_model 2560, vocab 256000; ``xlstm_125m``: 12 blocks, d_model 768,
     vocab 50304) at its production config (``smoke``: the smoke config,
@@ -1428,7 +1443,9 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
     at each shape the forward runs it at; (e) every logit is finite.
     Then the launcher ``python -m repro_torch.launch.serve --arch ARCH`` in
     a subprocess must exit 0 with one line per prompt.  Returns, per
-    dtype, the ``cuda`` generate's ``fuse1d`` launches by shape."""
+    dtype, the ``cuda`` generate's ``fuse1d`` launches by shape; with
+    ``keep`` (a dict), also stores each dtype's traced ``cuda`` generate
+    there (phase 14 holds the sharded engine against the bf16 one)."""
     import dataclasses
     import torch
     from repro_torch import configs as C
@@ -1497,6 +1514,8 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
               f"first request's tokens "
               f"{cu['tokens'][0][:8]}...; {card}")
         out[dtype] = cu["by_shape"]
+        if keep is not None:
+            keep[dtype] = cu
         del params, runs, cu, fwd
     # the launcher, as a user starts it
     texts = [" ".join(map(str, p[:n])) for p, n in zip(prompts, (8, 5, 3))]
@@ -2682,6 +2701,123 @@ def mesh_phase(seed: int, device="cuda", card="", net=None,
     return counts
 
 
+def sharded_phase(seed: int, device="cuda", card="", smoke=False,
+                  prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
+                  unsharded=None) -> dict:
+    """Phase 14: ``recurrentgemma_2b`` at its production config in
+    bfloat16 from phase 9's seeded init, served through
+    ``ServeEngine(policy=ShardingPolicy(mesh, cfg))`` (profile ``tp``) on
+    backend ``cuda``, the parameters distributed by the policy
+    (``shard_tree``) on ``make_host_mesh(device)``: a world-1 group
+    (``nccl`` on the card) and its 1x1 ("data", "model") mesh, the widest
+    one card gives (NCCL refuses two ranks on one GPU).  Phase 9's
+    traffic, held against the unsharded ``cuda`` engine on the same
+    weights: every parameter a DTensor with its spec's placements,
+    identical tokens, every call's logits within ``LM_BF16_RTOL`` of the
+    unsharded ones (bitwise equality printed), exactly ``n_conv``
+    ``fuse1d`` launches per prefill and none per decode step, all at
+    (4, shortest prompt, 2560) K4 causal bf16 on each rank's local shard.
+    Prefill ms, decode ms per step and peak memory of both engines
+    (``generate_rows``), and how many leaves the policy shards on
+    "model", are printed.  ``unsharded``: phase 9's traced bf16 ``cuda``
+    generate (the same seeded weights and traffic, in this process), else
+    the unsharded engine is run here first.  The group is destroyed at
+    the end.  Returns the sharded generate's ``fuse1d`` launches by
+    shape."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs as C, tree
+    from repro_torch.launch import mesh as tmesh, sharding as tsh
+    from repro_torch.launch.distributed import shutdown_distributed
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import Request, ServeEngine
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    base = C.get_smoke_config(LM_ARCH) if smoke else C.get_config(LM_ARCH)
+    cfg = dataclasses.replace(base, dtype="bfloat16")
+    n_conv = sum(k in CONV_KINDS for k in cfg.layer_pattern)
+    width = int(cfg.d_model * cfg.recurrent.width_factor)
+    k = cfg.recurrent.conv_width
+    want_shape = (torch.bfloat16, (LM_SLOTS, min(prompt_lens), 1, width), k,
+                  1, k - 1, 0)
+    reqs = [Request(p, max_new)
+            for p in lm_prompts(seed, cfg.vocab_size, prompt_lens)]
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    runs = {}
+    if unsharded is None:
+        unsharded = traced_generate(
+            ServeEngine(build_model(cfg, "cuda"), params, max_seq=LM_MAX_SEQ,
+                        batch_slots=LM_SLOTS), reqs, sync)
+    runs["unsharded"] = unsharded
+    mesh = tmesh.make_host_mesh(device)
+    try:
+        policy = tsh.ShardingPolicy(mesh, cfg)
+        specs = policy.param_specs(params)
+        t0 = time.perf_counter()
+        sharded = tsh.shard_tree(params, policy.param_shardings(params))
+        sync()
+        shard_s = time.perf_counter() - t0
+        del params                       # the shards are copies
+        bad = [i for i, (t, s) in enumerate(zip(tree.tree_leaves(sharded),
+                                                tree.tree_leaves(specs)))
+               if not isinstance(t, DTensor)
+               or tuple(t.placements) != tsh.placements(mesh, s)]
+        if bad:
+            raise SystemExit(f"sharded: leaves {bad} are not DTensors with "
+                             f"their spec's placements")
+        n_leaves = len(tree.tree_leaves(specs))
+        n_model = sum("model" in tuple(s) for s in tree.tree_leaves(specs))
+        print(f"sharded: {LM_ARCH} bf16 ({cfg.num_layers} layers, {n_conv} "
+              f"with a temporal conv), 1x1 (data, model) mesh over a world-1 "
+              f"{torch.distributed.get_backend()} group, profile "
+              f"{policy.profile}: {n_model} of {n_leaves} leaves sharded on "
+              f"'model', distributed in {shard_s:.2f} s; {card}")
+        runs["policy"] = traced_generate(
+            ServeEngine(build_model(cfg, "cuda"), sharded,
+                        max_seq=LM_MAX_SEQ, batch_slots=LM_SLOTS,
+                        policy=policy), reqs, sync)
+    finally:
+        shutdown_distributed()
+    pol, uns = runs["policy"], runs["unsharded"]
+    for label, run in runs.items():
+        check_launches(f"sharded ({label})", run, n_conv)
+    if dict(pol["by_shape"]) != {want_shape: n_conv}:
+        raise SystemExit(f"sharded: fuse1d launches by shape "
+                         f"{shape_counts(pol['by_shape'])}, expected "
+                         f"{shape_counts({want_shape: n_conv})}")
+    calls = list(zip(pol["prefill"] + pol["decode"],
+                     uns["prefill"] + uns["decode"]))
+    if len(pol["decode"]) != len(uns["decode"]):
+        raise SystemExit(f"sharded: {len(pol['decode'])} decode steps under "
+                         f"the policy, {len(uns['decode'])} without")
+    worst, worst_abs = check_logits(
+        "sharded (0 = prefill, policy against unsharded)", calls,
+        LM_BF16_RTOL, (LM_SLOTS, cfg.vocab_size))
+    bitwise = all(torch.equal(a, b) for a, b in calls)
+    if pol["tokens"] != uns["tokens"] or [len(t) for t in pol["tokens"]] \
+            != [max_new] * len(reqs):
+        raise SystemExit("sharded: token lists differ between the policy "
+                         "and the unsharded engine, or are short")
+    rows = generate_rows("sharded", runs, min(prompt_lens), card)
+    dispatch = ((rows["policy"]["decode_ms_median"] or 0)
+                - (rows["unsharded"]["decode_ms_median"] or 0))
+    print(f"sharded: {len(calls)} calls within {worst:.3e} of the scale "
+          f"(max|d| {worst_abs:.3e}, tolerance {LM_BF16_RTOL}), bitwise "
+          f"{'equal' if bitwise else 'NOT equal'}; tokens identical; fuse1d "
+          f"by shape {shape_counts(pol['by_shape'])}; DTensor dispatch adds "
+          f"{dispatch:.3f} ms to the median decode step; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    return {"bfloat16": pol["by_shape"]}
+
+
 def zoo_report(pair_counts, rows, notes) -> dict:
     """Phase 3's zoo-wide report: each distinct bucket-8 shape's row, the
     sums Σ launches x ms, x bound and x library per (network, variant) and
@@ -3180,7 +3316,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 9. lm ---------------------------------------------------------------
-    lm = lm_phase(args.seed, card=card)
+    lm_runs = {}
+    lm = lm_phase(args.seed, card=card, keep=lm_runs)
+    del lm_runs["float32"]
     torch.cuda.empty_cache()
 
     # -- 10. lm2 -------------------------------------------------------------
@@ -3199,6 +3337,13 @@ def main() -> int:
     mesh_counts = mesh_phase(args.seed, card=card)
     for name in ("matmul", "fuse1d", "depthwise_kxk", "fuseconv_fused"):
         report[name]["mesh_launches"] = mesh_counts[name]
+    torch.cuda.empty_cache()
+
+    # -- 14. sharded ---------------------------------------------------------
+    sharded = sharded_phase(args.seed, card=card,
+                            unsharded=lm_runs.pop("bfloat16"))
+    del lm_runs
+    torch.cuda.empty_cache()
 
     # the temporal form's rows: each (dtype, shape, form) at which phases 9,
     # 10 and 12 launched fuse1d (the cuda generates' prefills, the FuSe stem
@@ -3214,7 +3359,9 @@ def main() -> int:
                  (f"{WHISPER_ARCH} FuSe stem", "src/repro/models/stems.py:52",
                   lm2["whisper"]),
                  (f"{LM_ARCH} trained, prefill",
-                  "src/repro/kernels/ops.py:39", trained))]
+                  "src/repro/kernels/ops.py:39", trained),
+                 (f"{LM_ARCH} prefill under a sharding policy",
+                  "src/repro/kernels/ops.py:39", sharded))]
     for path, called_from, by_shape in paths:
         for key, n in by_shape.items():
             sh = temporal_shape(key)

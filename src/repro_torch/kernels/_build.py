@@ -27,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
@@ -183,6 +184,13 @@ def check_size(what: str, *tensors: torch.Tensor) -> None:
                              f"{MAX_NUMEL} elements (32-bit indexing)")
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor (``torch.distributed.tensor``; none can
+    exist before that module is imported, so this imports nothing)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
 def check_inputs(what: str, *tensors: torch.Tensor,
                  dtypes: Sequence[torch.dtype] = (torch.float32,)
                  ) -> torch.device:
@@ -192,7 +200,12 @@ def check_inputs(what: str, *tensors: torch.Tensor,
     ``MAX_NUMEL``, all on one CPU or CUDA device, and, on CUDA, none
     requiring grad while grad mode is on (a kernel writes a fresh tensor
     autograd cannot see into, so every gradient above it would be lost).
-    Returns that device."""
+    A DTensor is refused: a kernel runs on one rank's local shard, which
+    the caller hands it (``ops.fuse_conv1d_temporal`` through
+    ``local_map``).  Returns that device."""
+    if any(is_dtensor(t) for t in tensors):
+        raise TypeError(f"{what}: a DTensor reached the kernel's wrapper; "
+                        f"pass each rank's local shard")
     dev = tensors[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {dev}")

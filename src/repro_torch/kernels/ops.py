@@ -8,7 +8,10 @@ FuSe spatial stage, or one of its banks alone, is one launch of
 ``fuse1d.fuse_stage``, which indexes x in place and writes its output once
 (the TPU path's composition is its plain version); the LM stack's temporal
 form is one launch of ``fuse1d.fuse_temporal``, with the causal halo in
-the kernel and no chunking.
+the kernel and no chunking.  On DTensors (an LM under a sharding policy)
+the temporal form runs the kernel on each rank's local shard through
+``local_map``: a depthwise bank needs no collective over the batch or the
+channels, only the time axis has to be whole.
 
 ``fuseconv_fused`` and ``depthwise_kxk`` are re-exported so
 ``zoo.apply_network`` has a single kernel namespace, and
@@ -21,6 +24,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import fuse1d as _fuse1d
 from repro_torch.kernels import fused as _fused
 from repro_torch.kernels import matmul as _matmul
@@ -50,9 +54,39 @@ def reset_launch_counts() -> None:
 def fuse_conv1d_temporal(x: Tensor, w: Tensor, *, causal: bool = True
                          ) -> Tensor:
     """Depthwise temporal conv via the fuse1d kernel.  x: (B,T,C), w: (K,C);
-    float32 or bfloat16."""
+    float32 or bfloat16.  With x a DTensor, one launch per rank on its
+    local shard (``on_local_channels``)."""
+    if _build.is_dtensor(x):
+        return on_local_channels(_fuse1d.fuse_temporal, x, w, causal=causal)
     return _fuse1d.fuse_temporal(x.contiguous(), w.contiguous(),
                                  causal=causal)
+
+
+def on_local_channels(conv, x, w, *, causal: bool):
+    """``conv(x, w, causal=causal)``, a depthwise temporal conv, for a
+    DTensor x (B, T, C) on each rank's shard: x keeps its batch (dim 0)
+    and channel (dim 2) shards and is made whole over time (a time shard,
+    ``tp_seq``'s residual stream, or a pending sum is redistributed), w
+    (K, C) takes x's channel shards, and ``conv`` runs on the local
+    (B/data, T, C/model) against (K, C/model) under ``local_map``.  The
+    output keeps x's placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x_pl = [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in x.placements]
+    w_pl = [Shard(1) if p == Shard(2) else Replicate() for p in x_pl]
+
+    def local(xl: Tensor, wl: Tensor) -> Tensor:
+        if xl.shape[2] != wl.shape[1]:
+            raise ValueError(f"temporal conv: local x {tuple(xl.shape)} "
+                             f"against local w {tuple(wl.shape)}")
+        return conv(xl.contiguous(), wl.contiguous(), causal=causal)
+
+    # one output: its placements as a list (a tuple would mean one entry
+    # per output)
+    return local_map(local, out_placements=x_pl, in_placements=(x_pl, w_pl),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
 
 
 def fuse_conv2d_rows(x: Tensor, w_row: Tensor, *, stride: int = 1) -> Tensor:

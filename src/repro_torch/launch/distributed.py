@@ -16,11 +16,14 @@ drives both launchers) and is validated with readable errors by
   warmup broadcasts.  There is no process group and no NCCL, so two
   processes may share one card (NCCL refuses two ranks on one GPU), and
   every process keeps its local devices and kernel libraries to itself.
-* ``mode="global"`` — training's collectives across processes.  Not
-  ported yet: it raises :class:`DistributedConfigError`.
+* ``mode="global"`` — the default ``torch.distributed`` process group
+  over every process (``nccl`` on a card, ``gloo`` on the CPU), rendezvous
+  at ``tcp://<coordinator>``: what an LM mesh (``launch/mesh.py``'s
+  ``make_lm_mesh``) and its collectives need.  NCCL refuses two ranks on
+  one GPU, so a global group needs one card per process.
 
-Importing this module imports no torch; the store is created inside
-:func:`initialize_distributed`.
+Importing this module imports no torch; the store and the group are
+created inside :func:`initialize_distributed`.
 """
 from __future__ import annotations
 
@@ -191,31 +194,56 @@ class CoordinationClient:
 
 
 def initialize_distributed(spec: DistributedSpec, *,
-                           mode: str = "global"
+                           mode: str = "global", device="cuda",
+                           timeout_s: float = CONNECT_TIMEOUT_S
                            ) -> Optional[CoordinationClient]:
     """Bring up the distributed runtime per ``spec``.
 
     ``mode="coordination"`` hosts the key-value store on process 0
     (``TCPStore(is_master=True)``, not waiting for the others, so a worker
     may join late) or connects to it, and returns a
-    :class:`CoordinationClient`.  ``mode="global"`` (training's
-    collectives) raises :class:`DistributedConfigError`.  A
-    single-process spec returns None in either mode — callers take the
-    non-distributed path.
+    :class:`CoordinationClient`.  ``mode="global"`` brings up the default
+    process group, ``rank=process_id`` of ``world_size=num_processes``,
+    over ``init_method=tcp://<coordinator>`` (``nccl`` where ``device`` is
+    ``cuda``, ``gloo`` on the CPU), and returns None; a peer that does not
+    join within ``timeout_s`` raises ``TimeoutError``.  A single-process
+    spec returns None in either mode, and brings up nothing — callers take
+    the non-distributed path.
     """
     if mode not in ("global", "coordination"):
         raise ValueError(f"unknown mode {mode!r}")
     if spec.num_processes == 1:
         return None
+    timeout = datetime.timedelta(seconds=timeout_s)
     if mode == "global":
-        raise DistributedConfigError(
-            "mode='global' (collectives across processes, for training) is "
-            "not ported yet: ROADMAP Queue 1 item 7, training across "
-            "processes")
+        import torch
+        import torch.distributed as dist
+        kind = torch.device(device).type
+        if kind == "cuda":
+            torch.cuda.set_device(spec.process_id % torch.cuda.device_count())
+        try:
+            dist.init_process_group(
+                "nccl" if kind == "cuda" else "gloo",
+                init_method=f"tcp://{spec.coordinator_address}",
+                rank=spec.process_id, world_size=spec.num_processes,
+                timeout=timeout)
+        except dist.DistError as exc:
+            raise TimeoutError(
+                f"process {spec.process_id} of {spec.num_processes}: the "
+                f"process group at {spec.coordinator_address} did not form "
+                f"within {timeout_s:g} s ({str(exc).splitlines()[0]})"
+            ) from None
+        return None
     from torch.distributed import TCPStore
     host, port = spec.coordinator_address.rsplit(":", 1)
     store = TCPStore(host, int(port), world_size=spec.num_processes,
-                     is_master=spec.is_coordinator,
-                     timeout=datetime.timedelta(seconds=CONNECT_TIMEOUT_S),
+                     is_master=spec.is_coordinator, timeout=timeout,
                      wait_for_workers=False)
     return CoordinationClient(store, spec)
+
+
+def shutdown_distributed() -> None:
+    """Destroy the default process group if it is up (idempotent)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

@@ -26,13 +26,21 @@ every device-group size a multiple of P (the cost model's
 each process an equal stripe of *identical local device ids*, so every
 process runs the same stripe shapes on the same kernels.
 
-The reference's ``make_production_mesh`` and ``make_host_mesh`` serve LM
-sharding, which is not ported yet.
+LM sharding runs on a second kind of mesh, a ``torch.distributed``
+``DeviceMesh`` with named axes (``"data"``, ``"model"`` and, across pods,
+``"pod"``) over the ranks of the default process group, one device per
+rank: :func:`make_lm_mesh` for any shape, :func:`make_host_mesh` (1x1 on
+the local device, bringing up a world-1 group itself) and
+:func:`make_production_mesh` (the reference's 16x16 and 2x16x16).  The
+sharding policy reads a mesh through :func:`axis_names` and
+:func:`axis_size`, which take a ``DeviceMesh`` or any object with the
+reference's ``axis_names`` and ``shape`` mapping.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import os
 from typing import List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -234,6 +242,76 @@ def make_multiprocess_data_mesh(num_processes: int, process_id: int,
         universe=logical_universe(num_processes, n))
 
 
+LM_AXES = ("data", "model")
+PRODUCTION_AXES = ("pod", "data", "model")
+
+
+def axis_names(mesh) -> Tuple[str, ...]:
+    """A mesh's axis names: a ``DeviceMesh``'s ``mesh_dim_names``, else
+    its ``axis_names`` (the vision ``DataMesh``, a stand-in mesh)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names if names is not None else mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    """The size of axis ``name``: a ``DeviceMesh``'s ``size(dim)``, else
+    ``mesh.shape[name]`` as on a JAX mesh."""
+    if getattr(mesh, "mesh_dim_names", None) is not None:
+        return mesh.size(mesh.mesh_dim_names.index(name))
+    return mesh.shape[name]
+
+
+def make_lm_mesh(shape: Sequence[int], device="cuda",
+                 names: Sequence[str] = LM_AXES):
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over the ranks of
+    the default process group (row-major, one device per rank), on
+    ``device``'s type.  The group's world size must be the mesh's size: a
+    readable ``ValueError`` otherwise, never a wrap onto fewer ranks."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} against axes {names}")
+    size = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if size != world:
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} {names} mesh needs {size} "
+            f"processes, one device each, but the process group has "
+            f"{world}; start {size} processes and call "
+            f"launch.distributed.initialize_distributed(spec, "
+            f"mode='global') in each")
+    return init_device_mesh(torch.device(device).type, shape,
+                            mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The reference's production mesh: 16x16 ``("data", "model")``, or
+    2x16x16 ``("pod", "data", "model")`` with ``multi_pod``."""
+    if multi_pod:
+        return make_lm_mesh((2, 16, 16), device, PRODUCTION_AXES)
+    return make_lm_mesh((16, 16), device, LM_AXES)
+
+
+def make_host_mesh(device="cuda"):
+    """1x1 ``("data", "model")`` mesh on the real local device.  With no
+    process group it brings up a world-1 group first (``nccl`` for
+    ``cuda``, ``gloo`` on the CPU, over an in-process store)."""
+    import torch.distributed as dist
+    kind = torch.device(device).type
+    if not dist.is_initialized():
+        if kind == "cuda":
+            torch.cuda.set_device(torch.device(device).index or 0)
+        dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_lm_mesh((1, 1), device, LM_AXES)
+
+
 def data_axes(mesh) -> tuple:
     """The axes a global batch is sharded over (pod acts as outer data)."""
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))
+
+
+def model_axis(mesh) -> str:
+    return "model"

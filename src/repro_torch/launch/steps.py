@@ -1,21 +1,25 @@
 """Step builders: train_step (grad-accumulation microbatching),
-prefill_step, decode_step.
+prefill_step, decode_step, and the train step's shardings.
 
-Port of ``repro.launch.steps`` for one device.  Eager autograd through the
-model's plain ops stands in for ``jax.jit(value_and_grad)``; the model
-must be on backend ``torch`` (the kernels have no backward pass).  The
-reference's ``train_step_shardings`` and ``zero_extend`` place the state
-on a mesh; they wait for ``launch/sharding.py`` (ROADMAP Queue 1 item
-4.2), as does ``policy.act_constraint``, which is the identity on one
-device.
+Port of ``repro.launch.steps``.  Eager autograd through the model's plain
+ops stands in for ``jax.jit(value_and_grad)``; the model must be on
+backend ``torch`` (the kernels have no backward pass).  ``make_train_step``
+runs on one device.  ``make_prefill_step`` and ``make_decode_step`` pass a
+sharding policy's ``act_constraint`` to the model (the identity without
+one), and ``zero_extend`` and ``train_step_shardings`` give the specs and
+placements of a sharded train step's state, as the reference's jit takes
+them.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import torch
 
 from repro_torch.data.vision_synth import step_seed
+from repro_torch.launch.mesh import axis_size
+from repro_torch.launch.sharding import (NamedSharding, P, PartitionSpec,
+                                         ShardingPolicy)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.model import LanguageModel
 from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
@@ -23,7 +27,7 @@ from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
 from repro_torch.optim.compression import compress_tree
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.train.vision import value_and_grad
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -134,13 +138,68 @@ def make_train_step(model: LanguageModel, n_micro: int, optimizer=None,
     return train_step
 
 
-def make_prefill_step(model: LanguageModel) -> Callable:
+def zero_extend(policy: ShardingPolicy, spec, leaf) -> PartitionSpec:
+    """ZeRO: additionally shard optimizer state over 'data' on the first
+    divisible dim not already sharded.  No-op when the param spec already
+    uses 'data' (zero3 2-D weights)."""
+    dsz = axis_size(policy.mesh, "data")
+    parts = list(spec) + [None] * (leaf.ndim - len(spec))
+    if "data" in parts:
+        return P(*parts)
+    for i, (dim, s) in enumerate(zip(leaf.shape, parts)):
+        if s is None and dim % dsz == 0 and dim >= dsz:
+            parts[i] = "data"
+            break
+    return P(*parts)
+
+
+def train_step_shardings(policy: ShardingPolicy, params_shape: PyTree,
+                         batch_shape: PyTree, zero_opt: bool = False):
+    """``(in_shardings, out_shardings)`` of ``train_step(params,
+    opt_state, step, batch)``: the parameters' ``NamedSharding``s, the
+    AdamW moments' (``zero_extend``-ed with ``zero_opt``), the replicated
+    step, and each batch leaf (n_micro, mb, ...) sharded on its
+    microbatch axis."""
+    mesh = policy.mesh
+    ns = lambda s: NamedSharding(mesh, s)
+    raw_pspecs = policy.param_specs(params_shape)
+    pspecs = tree_map(ns, raw_pspecs)
+    if zero_opt:
+        osp = tree_map(lambda sp, leaf: ns(zero_extend(policy, sp, leaf)),
+                       raw_pspecs, params_shape)
+        ospecs = {"m": osp, "v": osp}
+    else:
+        ospecs = {"m": pspecs, "v": pspecs}
+
+    def batch_one(leaf):
+        # leaves are (n_micro, mb, ...): micro axis unsharded
+        base = policy.batch_spec(leaf.shape[1])
+        return ns(P(None, *(list(base) + [None] * (leaf.ndim - 2))))
+
+    bspecs = tree_map(batch_one, batch_shape)
+    in_sh = (pspecs, ospecs, ns(P()), bspecs)
+    out_sh = (pspecs, ospecs, ns(P()))
+    return in_sh, out_sh
+
+
+def _shard_act(policy: Optional[ShardingPolicy]) -> Callable:
+    return policy.act_constraint if policy is not None else (lambda x: x)
+
+
+def make_prefill_step(model: LanguageModel,
+                      policy: Optional[ShardingPolicy] = None) -> Callable:
+    shard_act = _shard_act(policy)
+
     def prefill_step(params, tokens, extras):
-        return model.prefill(params, tokens, extras)
+        return model.prefill(params, tokens, extras, shard_act=shard_act)
     return prefill_step
 
 
-def make_decode_step(model: LanguageModel) -> Callable:
+def make_decode_step(model: LanguageModel,
+                     policy: Optional[ShardingPolicy] = None) -> Callable:
+    shard_act = _shard_act(policy)
+
     def decode_step(params, token, cache, extras):
-        return model.decode_step(params, token, cache, extras)
+        return model.decode_step(params, token, cache, extras,
+                                 shard_act=shard_act)
     return decode_step

@@ -14,15 +14,24 @@ into a latent ``c_kv`` (B, S, kv_lora_rank) plus one shared roped key
 and runs ``blockwise_attention`` (Dk = nope + rope, Dv = v_head_dim, KH =
 H); the decode step keeps the cache latent and absorbs ``W_uk`` into the
 query and ``W_uv`` after the softmax, in fp32.
+
+Under a sharding policy q, k and v are DTensors.  ``blockwise_attention``
+and ``decode_attention`` then run on each rank's local shards
+(``_on_local_shards``): ``_gqa_layout`` first keeps only the three's
+common batch shards and the head shards that KH divides, and makes every
+other dim whole (a sequence shard, a head shard that straddles KV groups),
+so that the attention of a shard needs nothing from another rank.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import dense_init, rms_norm
 from repro_torch.models.config import ArchConfig
@@ -30,6 +39,35 @@ from repro_torch.models.config import ArchConfig
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
+
+
+def _gqa_layout(q: Tensor, k: Tensor, v: Tensor) -> list:
+    """Placements for DTensors q, k, v: on each mesh axis, the batch shard
+    (dim 0) or the head shard (dim 2, where the axis divides KH) that all
+    three share, else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, kh = q.device_mesh, k.shape[2]
+    layout = []
+    for i in range(mesh.ndim):
+        pl = {t.placements[i] for t in (q, k, v)}
+        same = pl.pop() if len(pl) == 1 else None
+        if same == Shard(0) or (same == Shard(2) and kh % mesh.size(i) == 0):
+            layout.append(same)
+        else:
+            layout.append(Replicate())
+    return layout
+
+
+def _on_local_shards(fn, q: Tensor, k: Tensor, v: Tensor, **kw) -> Tensor:
+    """``fn(q, k, v, **kw)`` on each rank's shards of q, k, v laid out by
+    ``_gqa_layout`` (redistributed to it first); the output (B, Sq, H, Dv)
+    takes the same placements."""
+    from torch.distributed.tensor.experimental import local_map
+    layout = _gqa_layout(q, k, v)
+    return local_map(functools.partial(fn, **kw), out_placements=layout,
+                     in_placements=(layout, layout, layout),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
@@ -41,6 +79,10 @@ def blockwise_attention(q: Tensor, k: Tensor, v: Tensor, *,
 
     Returns (B,Sq,H,Dv).  fp32 softmax statistics; O(chunk^2) live scores.
     """
+    if is_dtensor(q):
+        return _on_local_shards(blockwise_attention, q, k, v, causal=causal,
+                                window=window, q_offset=q_offset,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk)
     b, sq, h, dk = q.shape
     skv, kh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -97,6 +139,9 @@ def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
 
     q: (B,1,H,Dk); caches: (B,S,KH,D*); kv_len: the current length.
     """
+    if is_dtensor(q):
+        return _on_local_shards(decode_attention, q, k_cache, v_cache,
+                                kv_len=kv_len, window=window)
     b, _, h, dk = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh

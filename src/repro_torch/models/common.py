@@ -3,7 +3,8 @@
 Port of ``repro.models.common``.  Two numerics follow the JAX package on
 purpose: ``jax.nn.gelu`` defaults to the tanh approximation, so
 ``ACT["gelu"]`` is ``F.gelu(x, approximate="tanh")``; and ``rms_norm``
-computes in fp32, scales by ``1 + scale`` and casts back.
+computes in fp32, scales by ``1 + scale`` and casts back.  ``pad`` is
+``F.pad`` that also takes a DTensor (an LM under a sharding policy).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels._build import is_dtensor
 
 Tensor = torch.Tensor
 
@@ -77,3 +80,22 @@ GLU_ACTS = ("silu", "gelu")        # acts realized as gated (3-matrix) MLPs
 
 def softcap(x: Tensor, cap: float) -> Tensor:
     return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+def pad(x: Tensor, pads: Sequence[int], value: float = 0.0) -> Tensor:
+    """``F.pad(x, pads, value=value)``.  A DTensor is padded on each rank's
+    shard under ``local_map``, after the padded dims (and a pending sum)
+    are made whole; the other shards stay.  (DTensor's own rule for
+    ``constant_pad_nd`` returns one placement for a 2-D mesh in PyTorch
+    2.11.)"""
+    if not is_dtensor(x):
+        return F.pad(x, pads, value=value)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pads) if n}
+    layout = [Replicate() if p.is_partial() or (
+        isinstance(p, Shard) and p.dim % x.ndim in padded) else p
+        for p in x.placements]
+    return local_map(lambda t: F.pad(t, pads, value=value),
+                     out_placements=layout, in_placements=(layout,),
+                     device_mesh=x.device_mesh, redistribute_inputs=True)(x)

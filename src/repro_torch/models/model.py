@@ -11,7 +11,10 @@ The MoE and MLA layers (``qwen3_moe_235b``, ``deepseek_v2_236b``) run no
 hand kernel on either backend.  The decode cache's ``pos`` is a Python
 int.  ``loss`` (training) runs on backend ``torch``: the kernels have no
 backward pass and refuse grad-requiring inputs, and the reference trains
-on plain ops too.
+on plain ops too.  ``forward``, ``loss``, ``prefill`` and ``decode_step``
+take the reference's ``shard_act``, applied to the residual stream after
+every layer (a sharding policy's ``act_constraint``; the identity by
+default).
 """
 from __future__ import annotations
 
@@ -29,6 +32,10 @@ from repro_torch.models.config import ArchConfig
 
 Tensor = torch.Tensor
 PyTree = Any
+
+
+def Identity(x, *_):
+    return x
 
 
 def _stack(trees: List[PyTree]) -> PyTree:
@@ -159,7 +166,8 @@ class LanguageModel:
 
     # -- full-sequence forward (prefill logits) -------------------------------
     def forward(self, params: PyTree, tokens: Tensor,
-                extras: Optional[dict] = None) -> Tensor:
+                extras: Optional[dict] = None,
+                shard_act: Callable = Identity) -> Tensor:
         """tokens: (B, S) -> logits (B, S, V) in fp32."""
         segs = self._check()
         x, ctx = self._embed(params, tokens, extras)
@@ -167,11 +175,12 @@ class LanguageModel:
             for r in range(seg.repeats):
                 lp = _index(sp, r)
                 for i, kind in enumerate(seg.kinds):
-                    x = S.layer_forward(lp[f"k{i}"], x, kind, self.cfg,
-                                        seg.use_moe, ctx)
+                    x = shard_act(S.layer_forward(lp[f"k{i}"], x, kind,
+                                                  self.cfg, seg.use_moe, ctx))
         return self._logits(params, x)
 
-    def loss(self, params: PyTree, batch: dict) -> Tuple[Tensor, dict]:
+    def loss(self, params: PyTree, batch: dict,
+             shard_act: Callable = Identity) -> Tuple[Tensor, dict]:
         """Mean next-token NLL, ``logsumexp(logits) - logit[label]``, over
         ``batch["labels"]`` (B, S); every batch key but ``tokens`` and
         ``labels`` goes to ``extras``.  The label's logit is a gather (the
@@ -180,7 +189,8 @@ class LanguageModel:
         "ppl_proxy"})``, ``ppl_proxy = exp(min(loss, 20))``."""
         logits = self.forward(params, batch["tokens"],
                               extras={k: v for k, v in batch.items()
-                                      if k not in ("tokens", "labels")})
+                                      if k not in ("tokens", "labels")},
+                              shard_act=shard_act)
         labels = batch["labels"].long()
         lse = torch.logsumexp(logits, dim=-1)
         label_logit = logits.gather(-1, labels[..., None])[..., 0]
@@ -204,7 +214,8 @@ class LanguageModel:
         return {"layers": caches, "pos": 0}
 
     def prefill(self, params: PyTree, tokens: Tensor,
-                extras: Optional[dict] = None) -> Tuple[Tensor, PyTree]:
+                extras: Optional[dict] = None,
+                shard_act: Callable = Identity) -> Tuple[Tensor, PyTree]:
         """Full-sequence prefill: last-token logits + filled decode caches.
 
         Returned caches hold exactly the processed sequence (attention k/v
@@ -221,13 +232,16 @@ class LanguageModel:
                 for i, kind in enumerate(seg.kinds):
                     x, new_c[f"k{i}"] = S.layer_prefill(
                         lp[f"k{i}"], x, kind, self.cfg, seg.use_moe, ctx)
+                    x = shard_act(x)
                 per_rep.append(new_c)
             caches.append(_stack(per_rep))
         logits = self._logits(params, x[:, -1:])
         return logits[:, 0], {"layers": caches, "pos": tokens.shape[1]}
 
     def decode_step(self, params: PyTree, token: Tensor, cache: PyTree,
-                    extras: Optional[dict] = None) -> Tuple[Tensor, PyTree]:
+                    extras: Optional[dict] = None,
+                    shard_act: Callable = Identity
+                    ) -> Tuple[Tensor, PyTree]:
         """token: (B,) -> logits (B,V), updated cache (one position)."""
         segs = self._check()
         pos = int(cache["pos"])
@@ -242,6 +256,7 @@ class LanguageModel:
                     x, new_lc[f"k{i}"] = S.layer_decode(
                         lp[f"k{i}"], x, lc[f"k{i}"], kind, self.cfg,
                         seg.use_moe, pos, ctx)
+                    x = shard_act(x)
                 per_rep.append(new_lc)
             new_caches.append(_stack(per_rep))
         logits = self._logits(params, x)

@@ -29,8 +29,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import fuseconv as fc
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.kernels.backend import Backend
-from repro_torch.models.common import dense_init, gelu, rms_norm
+from repro_torch.models.common import dense_init, gelu, pad, rms_norm
 from repro_torch.models.config import ArchConfig, RecurrentConfig
 
 Tensor = torch.Tensor
@@ -140,16 +141,19 @@ def rglru_scan(p: dict, x: Tensor) -> Tensor:
 def temporal_conv(x: Tensor, w: Tensor, backend: Backend, *,
                   causal: bool = True) -> Tensor:
     """The temporal FuSeConv (causal, or centred for a stem) on the
-    backend's path."""
+    backend's path; a DTensor x on each rank's shard."""
     if backend.use_kernels:
         return kops.fuse_conv1d_temporal(x, w, causal=causal)
+    if is_dtensor(x):
+        return kops.on_local_channels(fc.fuse_conv1d_temporal, x, w,
+                                      causal=causal)
     return fc.fuse_conv1d_temporal(x, w, causal=causal)
 
 
 def conv_tail(u: Tensor, conv_width: int) -> Tensor:
     """The decode state a causal conv leaves after the sequence u
     (B, S, C): its last K-1 inputs, zero-padded on the left when S < K-1."""
-    return F.pad(u, (0, 0, conv_width - 1, 0))[:, u.shape[1]:]
+    return pad(u, (0, 0, conv_width - 1, 0))[:, u.shape[1]:]
 
 
 def rglru_branches(p: dict, x: Tensor) -> Tuple[Tensor, Tensor]:

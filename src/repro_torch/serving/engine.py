@@ -13,14 +13,23 @@ fixed-size decode buffers:
     (``xk``, ``xv``, computed once at prefill): carried as-is.
 
 The engine batches requests into fixed slots (padded), runs one prefill,
-then steps the decode, all under ``torch.inference_mode()``.  ``extras``
-go to every prefill and decode call, as in the reference: the memory's
-embeddings (``memory_embeds`` or ``vision_embeds``, one row per slot) and
-optionally its length ``memory_len``.  The
-reference's ``policy`` (a ``ShardingPolicy``) belongs to
-``launch/sharding.py``, which is not ported: only ``None`` is accepted.
-``_prefill`` and ``_decode`` are the model's calls, kept as attributes as
-in the reference.
+then steps the decode.  ``extras`` go to every prefill and decode call, as
+in the reference: the memory's embeddings (``memory_embeds`` or
+``vision_embeds``, one row per slot) and optionally its length
+``memory_len``.  ``_prefill`` and ``_decode`` are the model's calls, kept
+as attributes as in the reference.
+
+Without a policy the engine runs under ``torch.inference_mode()`` on the
+parameters' device.  With ``policy`` (a ``launch.sharding.ShardingPolicy``)
+the caller passes parameters already distributed on its mesh
+(``shard_tree(params, policy.param_shardings(params))``), as in the
+reference; prefill and decode run ``launch.steps``' step builders, which
+constrain the residual stream with ``policy.act_constraint``, on the
+mesh's device.  That path runs under ``torch.no_grad()`` (DTensor cannot
+set the version counter of an inference tensor) and under DTensor's
+implicit replication, scoped to the generate, so that the plain tensors
+the engine and the model make (tokens, positions, masks) meet the
+parameters as replicated; token ids are read from full tensors.
 """
 from __future__ import annotations
 
@@ -28,12 +37,21 @@ import dataclasses
 from typing import Any, List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.launch.sharding import ShardingPolicy
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import common
 from repro_torch.models.model import LanguageModel
 
 PyTree = Any
+
+
+def _token_ids(logits) -> list:
+    """The greedy token of each row, from the full logits (a DTensor's are
+    gathered first)."""
+    full = getattr(logits, "full_tensor", None)
+    return torch.argmax(full() if full else logits, -1).tolist()
 
 
 @dataclasses.dataclass
@@ -45,25 +63,30 @@ class Request:
 class ServeEngine:
     def __init__(self, model: LanguageModel, params: PyTree, *,
                  max_seq: int = 256, batch_slots: int = 4,
-                 policy: Optional[Any] = None,
+                 policy: Optional[ShardingPolicy] = None,
                  extras: Optional[dict] = None):
-        if policy is not None:
-            raise NotImplementedError(
-                "ServeEngine: a sharding policy is not ported yet "
-                "(launch/sharding.py, ROADMAP Queue 1 item 4.2, LM "
-                "sharding)")
+        if policy is not None and not isinstance(policy, ShardingPolicy):
+            raise TypeError(f"ServeEngine: policy must be a ShardingPolicy "
+                            f"or None, not {type(policy).__name__}")
         self.model = model
         self.cfg = model.cfg
         self.params = params
         self.max_seq = max_seq
         self.slots = batch_slots
+        self.policy = policy
         self.extras = extras = extras or {}
-        self.device = params["embed"].device
+        if policy is None:
+            self.device = params["embed"].device
+        else:
+            kind = policy.mesh.device_type
+            self.device = torch.device(
+                kind, torch.cuda.current_device() if kind == "cuda" else None)
         # the closures hold the model and extras, not the engine: an engine
         # dropped is freed at once, with its parameters (a reference cycle
         # would hold them on the card until the garbage collector runs)
-        self._prefill = lambda p, t, ex: model.prefill(p, t, ex)
-        self._decode = lambda p, t, c: model.decode_step(p, t, c, extras)
+        self._prefill = make_prefill_step(model, policy)
+        decode = make_decode_step(model, policy)
+        self._decode = lambda p, t, c: decode(p, t, c, extras)
 
     # -- cache alignment ---------------------------------------------------------
     def _align_entry(self, kind_key: str, arr, prefill_len: int):
@@ -72,12 +95,12 @@ class ServeEngine:
             s = arr.shape[2]          # (n_super, B, S, KH, hd)
             if window and s <= window:
                 pad = window - s      # right-align rolling window buffer
-                return F.pad(arr, (0, 0, 0, 0, pad, 0))
+                return common.pad(arr, (0, 0, 0, 0, pad, 0))
             pad = self.max_seq - s    # left-align absolute buffer
-            return F.pad(arr, (0, 0, 0, 0, 0, pad))
+            return common.pad(arr, (0, 0, 0, 0, 0, pad))
         if kind_key in ("ckv", "kr"):
             pad = self.max_seq - arr.shape[2]   # (n_super, B, S, r)
-            return F.pad(arr, (0, 0, 0, pad))   # left-aligned latent
+            return common.pad(arr, (0, 0, 0, pad))   # left-aligned
         return arr                    # recurrent states, memory K/V
 
     def _align_cache(self, cache: PyTree, prefill_len: int) -> PyTree:
@@ -90,12 +113,19 @@ class ServeEngine:
         return tree.tree_map_with_path(walk, cache)
 
     # -- generation ---------------------------------------------------------------
-    @torch.inference_mode()
     def generate(self, requests: List[Request]) -> List[list]:
         """Mixed-length batch, continuous-batching-lite: prefill to the
         SHORTEST prompt, then advance all slots together — slots still in
         their prompt are teacher-forced, finished slots decode greedily.
         No pad token ever enters a cache (batch-independence holds)."""
+        if self.policy is None:
+            with torch.inference_mode():
+                return self._generate(requests)
+        from torch.distributed.tensor.experimental import implicit_replication
+        with torch.no_grad(), implicit_replication():
+            return self._generate(requests)
+
+    def _generate(self, requests: List[Request]) -> List[list]:
         assert len(requests) <= self.slots
         reqs = list(requests) + [Request([0], 0)] * (self.slots -
                                                      len(requests))
@@ -107,7 +137,7 @@ class ServeEngine:
         cache = self._align_cache(cache, min_prompt)
         max_new = max(r.max_new_tokens for r in reqs)
         outs: List[list] = [[] for _ in reqs]
-        greedy = torch.argmax(logits, -1).tolist()
+        greedy = _token_ids(logits)
 
         def record(pos, greedy):
             # slot i emits when it has consumed its full prompt
@@ -129,7 +159,7 @@ class ServeEngine:
             logits, cache = self._decode(
                 self.params, torch.tensor(feed, dtype=torch.int64,
                                           device=self.device), cache)
-            greedy = torch.argmax(logits, -1).tolist()
+            greedy = _token_ids(logits)
             record(pos + 1, greedy)
             if all(len(o) >= r.max_new_tokens for o, r in zip(outs, reqs)):
                 break

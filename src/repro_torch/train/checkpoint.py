@@ -15,8 +15,8 @@ bfloat16 dtype of its own) and listed in the manifest under
 reference's npz, whose bfloat16 leaves arrive as 2-byte void (``|V2``)
 arrays: the same bits.  ``restore(step, template)`` returns the state with
 each leaf in the template leaf's dtype and on its device.  The
-reference's elastic re-shard on restore waits for device meshes (ROADMAP
-Queue 1 item 4.2).
+reference's elastic re-shard on restore waits for a trainer over a mesh
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 

@@ -7,8 +7,12 @@ microbatching, optional int8 gradient compression, async atomic
 checkpointing with exact resume, and straggler detection.  A fault hook
 makes the fault-tolerance path testable.  The reference takes a device
 mesh and restores onto whatever mesh the new job has; the port runs on one
-``device`` (the card unless the caller asks for the CPU), and meshes wait
-for ROADMAP Queue 1 item 4.2.
+``device`` (the card unless the caller asks for the CPU).  The sharding
+policy and the train step's shardings are ported
+(``launch/sharding.py``, ``launch/steps.py::train_step_shardings``); a
+trainer over a mesh, with sharded parameters and optimizer state and the
+restore's re-shard, is ROADMAP Queue 1 item 7 (training across processes,
+which now carries the training half of LM sharding).
 
 Each step is timed from taking its batch to the end of its device work
 (the loop synchronizes the device after every step, so that the time and

@@ -191,11 +191,12 @@ def test_init_tree_matches_reference_shapes(arch, dtype):
 
 
 def test_unported_kinds_raise_with_their_roadmap_item():
-    """A sharding policy (item 4.2) raises at the engine and an unknown
-    layer kind at the model; the MoE and MLA models (item 9.3, ported)
-    build, ``init`` and ``init_cache``, DeepSeek's attention caches latent
-    ``ckv``/``kr`` of the reference's shapes."""
-    with pytest.raises(NotImplementedError, match="4.2"):
+    """A policy that is not a ``ShardingPolicy`` raises at the engine and
+    an unknown layer kind at the model; the MoE and MLA models (item 9.3,
+    ported) build, ``init`` and ``init_cache``, DeepSeek's attention
+    caches latent ``ckv``/``kr`` of the reference's shapes."""
+    with pytest.raises(TypeError, match="must be a ShardingPolicy or None, "
+                                        "not object"):
         tengine.ServeEngine(None, {}, policy=object())
     bad = dataclasses.replace(TC.get_smoke_config("smollm_135m"),
                               block_pattern=("attn", "conv"))

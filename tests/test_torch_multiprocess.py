@@ -165,12 +165,20 @@ def test_store_client_values_timeouts_and_barriers(monkeypatch):
 
 
 def test_initialize_distributed_modes():
+    """A single-process spec brings up nothing in either mode; the global
+    mode's process 0 of two, with no peer, gives up readably within its
+    timeout and leaves no process group behind."""
     one = tdist.DistributedSpec("127.0.0.1:1", 1, 0)
     assert tdist.initialize_distributed(one, mode="coordination") is None
     assert tdist.initialize_distributed(one) is None
-    two = tdist.DistributedSpec("127.0.0.1:1", 2, 0)
-    with pytest.raises(tdist.DistributedConfigError, match="item 7"):
-        tdist.initialize_distributed(two, mode="global")
+    assert not torch.distributed.is_initialized()
+    two = tdist.DistributedSpec(f"127.0.0.1:{mpcheck.free_port()}", 2, 0)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="process 0 of 2.*within 2 s"):
+        tdist.initialize_distributed(two, mode="global", device="cpu",
+                                     timeout_s=2)
+    assert time.monotonic() - t0 < 15.0
+    assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="unknown mode"):
         tdist.initialize_distributed(two, mode="nccl")
 
