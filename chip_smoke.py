@@ -149,9 +149,12 @@ Phases (any failure exits non-zero, and no result line is printed):
             VJP as a ``torch.autograd.Function``) at (1, 4096, 2560) fp32
             against autograd through the plain doubling scan, within 1e-5
             of each gradient's scale, both peak memories printed; (c) the
-            trained parameters served as phase 9 serves its init (18
-            ``fuse1d`` launches per prefill, every call's logits within
-            ``LM_BF16_RTOL`` of ``torch``, identical tokens); (d)
+            trained parameters served as phase 9 serves its init, on the
+            short traffic (prompts of 64-70 tokens, 4 new: one prefill of
+            64 and 9 decode steps; 18 ``fuse1d`` launches per prefill,
+            every call's logits within ``LM_BF16_RTOL`` of ``torch``,
+            identical tokens); the final checkpoint is kept for phase 15;
+            (d)
             ``smollm_135m`` at its production config through ``python -m
             repro_torch.launch.train`` in subprocesses, 6 steps into one
             directory and 3 then 6 steps into another (a process restart
@@ -183,7 +186,7 @@ Phases (any failure exits non-zero, and no result line is printed):
             built cold; the card's compute mode is printed first (an
             exclusive one fails the phase);
 14. sharded — ``recurrentgemma_2b`` at its production config in bfloat16
-            (phase 9's seeded init and traffic) served through
+            (phase 9's seeded init, the short traffic) served through
             ``ServeEngine(policy=ShardingPolicy(mesh, cfg))`` on backend
             ``cuda``, its parameters distributed as DTensors by the policy
             (``launch.sharding.shard_tree``) over ``make_host_mesh``: a
@@ -195,10 +198,33 @@ Phases (any failure exits non-zero, and no result line is printed):
             (bitwise equality printed), exactly 18 ``fuse1d`` launches per
             generate, each on a rank's local shard at (4, 64, 2560) K4
             causal bf16; prefill ms, decode ms per step and peak memory of
-            both engines, and the leaves sharded on "model", printed.
+            both engines, and the leaves sharded on "model", printed;
+15. mesh_train — on a world-1 ``nccl`` group's 1x1 mesh
+            (``make_host_mesh``): (a) ``recurrentgemma_2b`` at its
+            production config trained by ``Trainer(mesh=)`` (parameters,
+            AdamW moments and batches placed by the sharding policy) with
+            phase 12's seed, batch and steps (its init, batches and step;
+            no final checkpoint: the machine caps a command's disk writes
+            at 45 GiB): each loss within 2^-7 relative of phase 12's, no
+            kernel launched, step ms, DTensor's cost per step and peak
+            memory printed; (b) phase 12's checkpoint restored onto the mesh,
+            every leaf a DTensor with its policy's placements and bit for
+            bit the checkpoint's, and (a)'s final state within 2^-7 of each
+            leaf's scale of it (bitwise count printed); (c) (a)'s weights
+            served through ``ServeEngine(policy=)`` on ``cuda`` and
+            ``torch`` (short traffic): identical tokens, 18 ``fuse1d``
+            launches per generate at (4, 64, 2560) K4 causal bf16 on the
+            local shard; (d) ``smollm_135m`` at its production config on
+            the mesh, straight and crashed by ``fault_hook`` then
+            restarted from its mesh checkpoint: bitwise equal; (e) 4 int8
+            steps of it in fp32 on the mesh against one device, within
+            1e-5 of each leaf's scale; (f) ``python -m
+            repro_torch.launch.train --smoke --distributed
+            --num-processes 1`` as a subprocess trains on its own world-1
+            group's 1x1 mesh and prints its final loss.
 
 Then the temporal form of ``fuse1d`` at each (dtype, shape, form) the
-``cuda`` generates of phases 9, 10, 12 and 14 and the FuSe stem launched it at
+``cuda`` generates of phases 9, 10, 12, 14 and 15 and the FuSe stem launched it at
 (``fuse1d.by_shape``: RG-2B x (4, 64, 2560), xLSTM (4, 64, 1536) and
 (4, 64, 768) K4 causal, the stem (4, 3000, 384) K3 centred; float32 and
 bfloat16), each checked against its plain version there and at T = 2,
@@ -1156,6 +1182,10 @@ LM_ARCH = "recurrentgemma_2b"
 LM_PROMPT_LENS = (64, 200, 333, 512)
 LM_MAX_NEW, LM_MAX_SEQ, LM_SLOTS = 32, 1024, 4
 LM_LAUNCH_NEW = 16
+# the short traffic of phases 12 (c), 14 and 15 (c): one prefill of 64
+# tokens, as phase 9's, then 9 decode steps (phase 9 pays for the long
+# generate: 479 steps)
+SHORT_PROMPT_LENS, SHORT_MAX_NEW = (64, 66, 68, 70), 4
 LM_LINE = re.compile(r"^prompt \[([\d ]*)\] -> \[([\d, ]*)\]$")
 # the layer kinds that open with a temporal FuSeConv (one fuse1d launch each
 # per forward or prefill on backend cuda)
@@ -1421,7 +1451,7 @@ def serve_backends(label, cfg, params, reqs, n_conv, rtol, sync, card):
 def lm_phase(seed: int, device="cuda", card="", smoke=False,
              prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
              launch_extra=(), arch=LM_ARCH, label="lm",
-             fwd_bf16_rtol=LM_BF16_RTOL, keep=None) -> dict:
+             fwd_bf16_rtol=LM_BF16_RTOL) -> dict:
     """Phase 9 (and 10a): ``arch`` (``recurrentgemma_2b``: 26 layers,
     d_model 2560, vocab 256000; ``xlstm_125m``: 12 blocks, d_model 768,
     vocab 50304) at its production config (``smoke``: the smoke config,
@@ -1443,9 +1473,7 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
     at each shape the forward runs it at; (e) every logit is finite.
     Then the launcher ``python -m repro_torch.launch.serve --arch ARCH`` in
     a subprocess must exit 0 with one line per prompt.  Returns, per
-    dtype, the ``cuda`` generate's ``fuse1d`` launches by shape; with
-    ``keep`` (a dict), also stores each dtype's traced ``cuda`` generate
-    there (phase 14 holds the sharded engine against the bf16 one)."""
+    dtype, the ``cuda`` generate's ``fuse1d`` launches by shape."""
     import dataclasses
     import torch
     from repro_torch import configs as C
@@ -1514,8 +1542,6 @@ def lm_phase(seed: int, device="cuda", card="", smoke=False,
               f"first request's tokens "
               f"{cu['tokens'][0][:8]}...; {card}")
         out[dtype] = cu["by_shape"]
-        if keep is not None:
-            keep[dtype] = cu
         del params, runs, cu, fwd
     # the launcher, as a user starts it
     texts = [" ".join(map(str, p[:n])) for p, n in zip(prompts, (8, 5, 3))]
@@ -2282,8 +2308,8 @@ def smol_restart(cfg_smoke: bool, build: str, launch_extra, card) -> None:
 
 
 def lm_train_phase(seed: int, device="cuda", card="", smoke=False,
-                   prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
-                   launch_extra=()) -> dict:
+                   prompt_lens=SHORT_PROMPT_LENS, max_new=SHORT_MAX_NEW,
+                   launch_extra=(), keep=None) -> dict:
     """Phase 12: (a) ``recurrentgemma_2b`` at its production config (26
     layers, d_model 2560, vocab 256000) in its bf16 with fp32 AdamW moments,
     trained by ``train.trainer.Trainer`` (backend ``torch``: the kernels
@@ -2292,10 +2318,13 @@ def lm_train_phase(seed: int, device="cuda", card="", smoke=False,
     seeded init; fails unless every loss is finite, every trained leaf is
     finite and no kernel launched; prints the median of steps 2-4, peak
     memory and the final checkpoint's bytes and save seconds, then deletes
-    it.  (b) ``scan_vjp`` at ``SCAN_SHAPE``.  (c) the trained parameters
-    served as phase 9 serves its init (``serve_backends``: 18 ``fuse1d``
-    launches per prefill, every call's logits within ``LM_BF16_RTOL``,
-    identical tokens), with phase 9's prompts.  (d) ``smol_restart``, then
+    it, unless ``keep`` (a dict) asks for it: then ``keep`` gets its
+    directory and step, the losses, the step ms and the peak, for phase
+    15, which deletes it.  (b) ``scan_vjp`` at ``SCAN_SHAPE``.  (c) the
+    trained parameters served as phase 9 serves its init
+    (``serve_backends``: 18 ``fuse1d`` launches per prefill, every call's
+    logits within ``LM_BF16_RTOL``, identical tokens), with the short
+    traffic (``SHORT_PROMPT_LENS``).  (d) ``smol_restart``, then
     ``SMOL_ARCH`` trained in process for ``SMOL_INT8_STEPS`` steps with
     int8 gradient compression and ``adamw(3e-3)``, as the reference's test
     does: the loss must fall.  ``smoke``: the smoke configs at sequence 32
@@ -2363,7 +2392,11 @@ def lm_train_phase(seed: int, device="cuda", card="", smoke=False,
           f" final checkpoint step {save['step']}: {save['bytes']} B, host "
           f"copy {save['copy_s']:.2f} s + write {save['write_s']:.2f} s; "
           f"{card}")
-    shutil.rmtree(ckpt_dir)
+    if keep is None:
+        shutil.rmtree(ckpt_dir)
+    else:
+        keep.update(ckpt_dir=ckpt_dir, step=save["step"], losses=losses,
+                    step_ms=step_ms, peak=peak)
     del out, trainer, hist
     if on_card:
         torch.cuda.empty_cache()
@@ -2702,28 +2735,26 @@ def mesh_phase(seed: int, device="cuda", card="", net=None,
 
 
 def sharded_phase(seed: int, device="cuda", card="", smoke=False,
-                  prompt_lens=LM_PROMPT_LENS, max_new=LM_MAX_NEW,
-                  unsharded=None) -> dict:
+                  prompt_lens=SHORT_PROMPT_LENS,
+                  max_new=SHORT_MAX_NEW) -> dict:
     """Phase 14: ``recurrentgemma_2b`` at its production config in
     bfloat16 from phase 9's seeded init, served through
     ``ServeEngine(policy=ShardingPolicy(mesh, cfg))`` (profile ``tp``) on
     backend ``cuda``, the parameters distributed by the policy
     (``shard_tree``) on ``make_host_mesh(device)``: a world-1 group
     (``nccl`` on the card) and its 1x1 ("data", "model") mesh, the widest
-    one card gives (NCCL refuses two ranks on one GPU).  Phase 9's
-    traffic, held against the unsharded ``cuda`` engine on the same
-    weights: every parameter a DTensor with its spec's placements,
+    one card gives (NCCL refuses two ranks on one GPU).  The short
+    traffic (phase 9 pays for the long generate), held against the
+    unsharded ``cuda`` engine on the same weights, run here first: every
+    parameter a DTensor with its spec's placements,
     identical tokens, every call's logits within ``LM_BF16_RTOL`` of the
     unsharded ones (bitwise equality printed), exactly ``n_conv``
     ``fuse1d`` launches per prefill and none per decode step, all at
     (4, shortest prompt, 2560) K4 causal bf16 on each rank's local shard.
     Prefill ms, decode ms per step and peak memory of both engines
     (``generate_rows``), and how many leaves the policy shards on
-    "model", are printed.  ``unsharded``: phase 9's traced bf16 ``cuda``
-    generate (the same seeded weights and traffic, in this process), else
-    the unsharded engine is run here first.  The group is destroyed at
-    the end.  Returns the sharded generate's ``fuse1d`` launches by
-    shape."""
+    "model", are printed.  The group is destroyed at the end.  Returns
+    the sharded generate's ``fuse1d`` launches by shape."""
     import dataclasses
     import torch
     from torch.distributed.tensor import DTensor
@@ -2751,12 +2782,9 @@ def sharded_phase(seed: int, device="cuda", card="", smoke=False,
             for p in lm_prompts(seed, cfg.vocab_size, prompt_lens)]
     params = build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(seed), device=dev)
-    runs = {}
-    if unsharded is None:
-        unsharded = traced_generate(
-            ServeEngine(build_model(cfg, "cuda"), params, max_seq=LM_MAX_SEQ,
-                        batch_slots=LM_SLOTS), reqs, sync)
-    runs["unsharded"] = unsharded
+    runs = {"unsharded": traced_generate(
+        ServeEngine(build_model(cfg, "cuda"), params, max_seq=LM_MAX_SEQ,
+                    batch_slots=LM_SLOTS), reqs, sync)}
     mesh = tmesh.make_host_mesh(device)
     try:
         policy = tsh.ShardingPolicy(mesh, cfg)
@@ -2816,6 +2844,384 @@ def sharded_phase(seed: int, device="cuda", card="", smoke=False,
           f"{dispatch:.3f} ms to the median decode step; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s; {card}")
     return {"bfloat16": pol["by_shape"]}
+
+
+# phase 15: LM training across processes, on one card: RecurrentGemma-2B
+# trained under the sharding policy on a world-1 nccl mesh against phase
+# 12's one-device run, phase 12's checkpoint restored onto the mesh, the
+# policy-trained weights served on the hand kernel; SmolLM-135M crashed and
+# restarted on the mesh, int8 on the mesh, the launcher's --distributed
+MESH_TRAIN_RTOL = 2.0 ** -7     # losses (relative) and leaves (of max|ref|)
+SMOL_MESH_STEPS, SMOL_MESH_CRASH_AT = 4, 2
+INT8_MESH_STEPS = 4
+INT8_MESH_RTOL = 1e-5           # of each leaf's max|one device|
+
+
+def leaf_items(state) -> list:
+    """(checkpoint key, tensor) of each leaf of a trainer state, a DTensor
+    as its local shard (the whole leaf on a world-1 mesh)."""
+    from repro_torch import tree
+    keys = []
+    tree.tree_map_with_path(
+        lambda p, _: keys.append("/".join(map(str, p))), state)
+    return [(k, getattr(t, "to_local", lambda t=t: t)())
+            for k, t in zip(keys, tree.tree_leaves(state))]
+
+
+def compare_states(label, got, ref, rtol) -> tuple:
+    """Every leaf of ``got`` within ``rtol`` of its ``ref`` leaf's max|.|
+    (same keys, shapes and dtypes).  Returns (leaves, bitwise equal,
+    worst ratio)."""
+    import torch
+    ref = dict(leaf_items(ref))
+    items = leaf_items(got)
+    if sorted(k for k, _ in items) != sorted(ref):
+        raise SystemExit(f"{label}: the two states hold different leaves")
+    bitwise, worst = 0, 0.0
+    for k, g in items:
+        r = ref[k]
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise SystemExit(f"{label}: leaf {k} is {g.dtype} "
+                             f"{tuple(g.shape)} against {r.dtype} "
+                             f"{tuple(r.shape)}")
+        bitwise += bool(torch.equal(g, r))
+        d = (g.float() - r.float()).abs().max().item()
+        ratio = d / max(r.float().abs().max().item(), 1e-30)
+        worst = max(worst, ratio if d else 0.0)
+        if d > rtol * r.float().abs().max().item():
+            raise SystemExit(f"{label}: leaf {k} is {d:.3e} off, {ratio:.3e}"
+                             f" of its scale (tolerance {rtol})")
+    return len(items), bitwise, worst
+
+
+def checkpoint_npz(directory: str, step: int):
+    """A port checkpoint's ``state.npz``, opened (its leaves are read one
+    at a time: a 26.8 GB state is not held on the host at once)."""
+    import numpy as np
+    return np.load(os.path.join(directory, f"step_{step}", "state.npz"))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_train_phase(seed: int, device="cuda", card="", smoke=False,
+                     one_device=None, prompt_lens=SHORT_PROMPT_LENS,
+                     max_new=SHORT_MAX_NEW) -> dict:
+    """Phase 15, the trainer over a mesh on ``make_host_mesh(device)`` (a
+    world-1 group, ``nccl`` on the card; NCCL refuses two ranks on one
+    GPU, so the world-4 partitioning is held on the CPU,
+    ``tests/test_torch_sharded_training.py``).  ``one_device``: phase 12's
+    ``keep`` (its final checkpoint on disk, its losses, step ms and peak).
+
+    (a) ``recurrentgemma_2b`` at its production config (phase 12's) trained
+    by ``Trainer(mesh=)`` with phase 12's seed, batch and steps: every loss
+    within ``MESH_TRAIN_RTOL`` (relative) of phase 12's, no kernel
+    launched; step ms (median of steps 2-4), DTensor's cost per step
+    against phase 12 and peak memory printed.  The phase drives the
+    trainer's own init, batches and step, not ``train()``, whose final
+    checkpoint would write another 26.8 GB: the card's machine ends a
+    command that writes 45 GiB to its disk, and phase 12 writes 33.6 GB
+    (mesh checkpoints are saved and restored by (d), at SmolLM-135M's
+    size).
+    (b) phase 12's checkpoint (saved without a mesh) restored onto the
+    mesh: every leaf a DTensor with its policy's placements and bit for
+    bit the checkpoint's, the read seconds printed; (a)'s final state
+    within ``MESH_TRAIN_RTOL`` of each leaf's max|.| of it, the leaves
+    bitwise equal counted.  (c) (a)'s weights served through
+    ``ServeEngine(policy=)`` on backends ``cuda`` and ``torch`` (the short
+    traffic): identical tokens, every call's logits within
+    ``LM_BF16_RTOL``, exactly ``n_conv`` ``fuse1d`` launches per generate,
+    all at (4, 64, 2560) K4 causal on each rank's local shard.  (d)
+    ``smollm_135m`` at its production config trained on the mesh
+    ``SMOL_MESH_STEPS`` steps straight, and crashed by ``fault_hook`` at
+    ``SMOL_MESH_CRASH_AT`` then restarted from its mesh checkpoint: the
+    two final checkpoints bitwise equal.  (e) ``INT8_MESH_STEPS`` int8
+    steps of ``smollm_135m`` in float32 on the mesh against the one-device
+    trainer's on the same batches: every leaf within ``INT8_MESH_RTOL`` of
+    its scale.  The group is destroyed; then (f) ``python -m
+    repro_torch.launch.train --arch smollm_135m --smoke --distributed
+    --num-processes 1`` as a subprocess must train on a world-1 group's
+    1x1 mesh and print its final loss.  ``smoke``: the smoke configs at
+    sequence 32, for a CPU rehearsal.  Deletes phase 12's checkpoint.
+    Returns the served ``fuse1d`` launches by shape, under the dtype."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs as C, tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as tmesh, sharding as tsh
+    from repro_torch.launch.distributed import shutdown_distributed
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import Request, ServeEngine
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    build = os.path.join(ROOT, "build")
+    seq = 32 if smoke else TRAIN_SEQ
+    get = C.get_smoke_config if smoke else C.get_config
+    cfg = get(LM_ARCH)
+    n_conv = sum(k in CONV_KINDS for k in cfg.layer_pattern)
+    width = int(cfg.d_model * cfg.recurrent.width_factor)
+    k = cfg.recurrent.conv_width
+    want_shape = (torch.float32 if cfg.dtype == "float32" else torch.bfloat16,
+                  (LM_SLOTS, min(prompt_lens), 1, width), k, 1, k - 1, 0)
+    dirs = {name: os.path.join(build, f"lm_mesh_{name}") for name in (
+        "train", "smol_straight", "smol_restart", "int8_mesh", "int8_one",
+        "launcher")}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    mesh = tmesh.make_host_mesh(device)
+    try:
+        # (a) RG-2B trained under the policy
+        trainer = Trainer(cfg, TrainerConfig(
+            steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=seq,
+            microbatches=1, ckpt_dir=dirs["train"], seed=seed), mesh=mesh)
+        free()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt_state, _ = trainer.init_state()
+        hist = []
+        for step in range(TRAIN_STEPS):
+            t1 = time.perf_counter()
+            batch = trainer._place_batch(trainer._get_batch(step))
+            params, opt_state, metrics = trainer.step_fn(
+                params, opt_state, step, batch)
+            sync()
+            hist.append({"loss": float(metrics["loss"]),
+                         "sec_per_step": time.perf_counter() - t1})
+        train_s = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
+        losses = [h["loss"] for h in hist]
+        if any(counts.values()):
+            raise SystemExit(f"mesh_train {LM_ARCH}: training launched "
+                             f"kernels {counts}")
+        ref_losses = one_device["losses"]
+        loss_err = max((abs(a - b) / abs(b) for a, b in
+                        zip(losses, ref_losses)), default=math.inf)
+        if len(losses) != len(ref_losses) or not loss_err <= MESH_TRAIN_RTOL:
+            raise SystemExit(f"mesh_train {LM_ARCH}: losses {losses} under "
+                             f"the policy against {ref_losses} on one device"
+                             f" (tolerance {MESH_TRAIN_RTOL} relative)")
+        later = sorted(h["sec_per_step"] for h in hist[1:])
+        step_ms = later[len(later) // 2] * 1e3
+        print(f"mesh_train {LM_ARCH}{' (smoke)' * smoke}: {cfg.dtype}, "
+              f"{TRAIN_STEPS} steps of {TRAIN_BATCH}x{seq} tokens by "
+              f"Trainer(mesh=) on a 1x1 mesh over a world-1 "
+              f"{torch.distributed.get_backend()} group: losses "
+              f"{[round(x, 4) for x in losses]} against phase 12's "
+              f"{[round(x, 4) for x in ref_losses]} (worst {loss_err:.3e} "
+              f"relative, bitwise {losses == ref_losses}); step ms "
+              f"{[round(h['sec_per_step'] * 1e3, 1) for h in hist]}, median "
+              f"of steps 2-{TRAIN_STEPS} {step_ms:.1f} ms against "
+              f"{one_device['step_ms']:.1f} ms on one device (DTensor adds "
+              f"{step_ms - one_device['step_ms']:.1f} ms a step); train wall "
+              f"{train_s:.1f} s (the init included); peak device memory "
+              f"{peak} B against {one_device['peak']} B; launches {counts}; "
+              f"{card}")
+        trained = {"params": params, "opt": opt_state}
+        del params, opt_state, batch, hist
+
+        # (b) phase 12's checkpoint restored onto the mesh, bit for bit;
+        # (a)'s final state against it
+        p_t, o_t = trainer.state_template()
+        sync()
+        t0 = time.perf_counter()
+        restored, manifest = CheckpointManager(
+            one_device["ckpt_dir"]).restore(
+                one_device["step"], {"params": p_t, "opt": o_t},
+                shardings={"params": trainer.shardings[0],
+                           "opt": trainer.shardings[1]})
+        sync()
+        read_s = time.perf_counter() - t0
+        specs = trainer.policy.param_specs(p_t)
+        specs = {"params": specs, "opt": {"m": specs, "v": specs}}
+        bad = [i for i, (t, sp) in enumerate(zip(
+            tree.tree_leaves(restored), tree.tree_leaves(specs)))
+            if not isinstance(t, DTensor)
+            or tuple(t.placements) != tsh.placements(mesh, sp)]
+        if bad or manifest["step"] != one_device["step"]:
+            raise SystemExit(f"mesh_train restore: leaves {bad} are not "
+                             f"DTensors with their policy's placements, or "
+                             f"the step is {manifest['step']}")
+        with checkpoint_npz(one_device["ckpt_dir"], one_device["step"]) \
+                as stored:
+            for key, t in leaf_items(restored):
+                got = t.cpu()
+                got = (got.view(torch.int16) if got.dtype == torch.bfloat16
+                       else got).numpy()
+                if not np.array_equal(got, stored[key]):
+                    raise SystemExit(f"mesh_train restore: leaf {key} on the"
+                                     f" mesh is not bit for bit the "
+                                     f"checkpoint's")
+        n_leaves, n_bitwise, worst = compare_states(
+            f"mesh_train {LM_ARCH} trained under the policy against phase "
+            f"12", trained, restored, MESH_TRAIN_RTOL)
+        print(f"mesh_train restore: phase 12's step-{one_device['step']} "
+              f"checkpoint (saved without a mesh) read onto the mesh in "
+              f"{read_s:.2f} s, {n_leaves} leaves, each a DTensor with its "
+              f"policy's placements and bit for bit the checkpoint's; the "
+              f"state trained under the policy against it: worst max|d| / "
+              f"scale {worst:.3e} (tolerance {MESH_TRAIN_RTOL}), "
+              f"{n_bitwise} of {n_leaves} leaves bitwise equal; {card}")
+        del restored, trained["opt"], trainer
+        shutil.rmtree(one_device["ckpt_dir"])
+        free()
+
+        # (c) the weights trained under the policy, served on the kernel
+        policy = tsh.ShardingPolicy(mesh, cfg)
+        reqs = [Request(p, max_new)
+                for p in lm_prompts(seed, cfg.vocab_size, prompt_lens)]
+        runs = {bk: traced_generate(
+            ServeEngine(build_model(cfg, bk), trained["params"],
+                        max_seq=LM_MAX_SEQ, batch_slots=LM_SLOTS,
+                        policy=policy), reqs, sync)
+            for bk in ("cuda", "torch")}
+        label = f"mesh_train {LM_ARCH} trained under the policy, served"
+        check_launches(label, runs["cuda"], n_conv)
+        if any(runs["torch"]["counts"].values()):
+            raise SystemExit(f"{label}: backend torch launched kernels "
+                             f"{runs['torch']['counts']}")
+        served = runs["cuda"]["by_shape"]
+        if dict(served) != {want_shape: n_conv}:
+            raise SystemExit(f"{label}: fuse1d launches by shape "
+                             f"{shape_counts(served)}, expected "
+                             f"{shape_counts({want_shape: n_conv})}")
+        rtol = LM_BF16_RTOL if cfg.dtype == "bfloat16" else KERNEL_RTOL
+        n_calls, worst, worst_abs = check_backends(
+            label, runs, rtol, len(reqs), max_new, cfg.vocab_size)
+        generate_rows(label, runs, min(prompt_lens), card)
+        print(f"{label}: cuda vs torch over {n_calls} calls: worst max|d| / "
+              f"scale {worst:.3e} (max|d| {worst_abs:.3e}, tolerance "
+              f"{rtol}), tokens identical; fuse1d by shape "
+              f"{shape_counts(served)}; first request's tokens "
+              f"{runs['cuda']['tokens'][0]}; {card}")
+        del runs, trained
+        free()
+
+        # (d) SmolLM-135M on the mesh: straight, and crashed + restarted
+        smol = get(SMOL_ARCH)
+
+        def smol_trainer(name, ckpt_every):
+            return Trainer(smol, TrainerConfig(
+                steps=SMOL_MESH_STEPS, global_batch=SMOL_BATCH,
+                seq_len=seq if smoke else SMOL_SEQ, microbatches=1,
+                log_every=1, ckpt_every=ckpt_every, ckpt_dir=dirs[name],
+                seed=seed), mesh=mesh)
+
+        class Crash(Exception):
+            pass
+
+        def crash(step):
+            if step == SMOL_MESH_CRASH_AT:
+                raise Crash()
+
+        t0 = time.perf_counter()
+        smol_trainer("smol_straight", 0).train()
+        straight_s = time.perf_counter() - t0
+        crashed = smol_trainer("smol_restart", SMOL_MESH_CRASH_AT)
+        try:
+            crashed.train(fault_hook=crash)
+            raise SystemExit("mesh_train smol: the fault hook did not fire")
+        except Crash:
+            pass
+        if crashed.ckpt.latest_step() != SMOL_MESH_CRASH_AT:
+            raise SystemExit(f"mesh_train smol: the crashed run's latest "
+                             f"checkpoint is {crashed.ckpt.latest_step()}")
+        logged = [h["step"] for h in
+                  smol_trainer("smol_restart",
+                               SMOL_MESH_CRASH_AT).train()["history"]]
+        if logged != list(range(SMOL_MESH_CRASH_AT, SMOL_MESH_STEPS)):
+            raise SystemExit(f"mesh_train smol: the restart logged steps "
+                             f"{logged}")
+        with checkpoint_npz(dirs["smol_straight"], SMOL_MESH_STEPS) as a, \
+                checkpoint_npz(dirs["smol_restart"], SMOL_MESH_STEPS) as b:
+            n_smol = len(a.files)
+            if sorted(a.files) != sorted(b.files) or not all(
+                    np.array_equal(a[k], b[k]) for k in a.files):
+                raise SystemExit("mesh_train smol: the restarted run's final"
+                                 " checkpoint is not bitwise the straight "
+                                 "run's")
+        print(f"mesh_train {SMOL_ARCH}{' (smoke)' * smoke}: {smol.dtype}, "
+              f"{SMOL_MESH_STEPS} steps of {SMOL_BATCH}x"
+              f"{seq if smoke else SMOL_SEQ} tokens on the mesh in "
+              f"{straight_s:.1f} s; crashed at step {SMOL_MESH_CRASH_AT} and "
+              f"restarted from its mesh checkpoint (logged steps {logged}): "
+              f"the two step-{SMOL_MESH_STEPS} checkpoints, {n_smol} "
+              f"leaves, bitwise equal; {card}")
+
+        # (e) int8 on the mesh against one device, in fp32
+        smol32 = dataclasses.replace(smol, dtype="float32")
+        int8 = {}
+        for name, on_mesh in (("int8_mesh", mesh), ("int8_one", None)):
+            t0 = time.perf_counter()
+            out = Trainer(smol32, TrainerConfig(
+                steps=INT8_MESH_STEPS, global_batch=SMOL_BATCH, seq_len=32,
+                microbatches=2, log_every=1, ckpt_every=0,
+                ckpt_dir=dirs[name], grad_compression="int8", seed=1),
+                device=dev, mesh=on_mesh,
+                optimizer=adamw(3e-3, weight_decay=0.0)).train()
+            int8[name] = ({"params": out["params"], "opt": out["opt_state"]},
+                          [h["loss"] for h in out["history"]],
+                          time.perf_counter() - t0)
+            del out
+        n_leaves, n_bitwise, worst = compare_states(
+            f"mesh_train {SMOL_ARCH} int8 on the mesh against one device",
+            int8["int8_mesh"][0], int8["int8_one"][0], INT8_MESH_RTOL)
+        print(f"mesh_train {SMOL_ARCH} int8: {INT8_MESH_STEPS} steps of "
+              f"{SMOL_BATCH}x32 tokens in 2 microbatches, fp32, int8 gradient"
+              f" compression, on the mesh ({int8['int8_mesh'][2]:.1f} s) "
+              f"against one device ({int8['int8_one'][2]:.1f} s): losses "
+              f"{[round(x, 4) for x in int8['int8_mesh'][1]]} and "
+              f"{[round(x, 4) for x in int8['int8_one'][1]]}; worst max|d| / "
+              f"scale {worst:.3e} (tolerance {INT8_MESH_RTOL}), {n_bitwise} "
+              f"of {n_leaves} leaves bitwise equal; {card}")
+        del int8
+    finally:
+        shutdown_distributed()
+    free()
+
+    # (f) the launcher's --distributed on one process
+    t0 = time.perf_counter()
+    proc = run_lm_launcher(
+        ["--arch", SMOL_ARCH, "--smoke", "--device", device, "--distributed",
+         "--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+         "--process-id", "0", "--steps", "4", "--ckpt-dir",
+         dirs["launcher"]], module="repro_torch.launch.train")
+    want = (f"mesh: 1x1 ('data', 'model') over a world-1 "
+            f"{'nccl' if on_card else 'gloo'} group")
+    final = [l for l in proc.stdout.splitlines()
+             if l.startswith("final loss: ")]
+    if proc.returncode != 0 or want not in proc.stdout or len(final) != 1 \
+            or not math.isfinite(float(final[0].split()[-1])):
+        raise SystemExit(f"mesh_train launcher exited {proc.returncode}:\n"
+                         f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    print(f"mesh_train launcher: {SMOL_ARCH} (smoke) --distributed "
+          f"--num-processes 1: exit 0 in {time.perf_counter() - t0:.1f} s, "
+          f"{want!r}, {final[0]!r}")
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"mesh_train: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {cfg.dtype: served}
 
 
 def zoo_report(pair_counts, rows, notes) -> dict:
@@ -3316,9 +3722,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 9. lm ---------------------------------------------------------------
-    lm_runs = {}
-    lm = lm_phase(args.seed, card=card, keep=lm_runs)
-    del lm_runs["float32"]
+    lm = lm_phase(args.seed, card=card)
     torch.cuda.empty_cache()
 
     # -- 10. lm2 -------------------------------------------------------------
@@ -3330,7 +3734,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 12. lm_train --------------------------------------------------------
-    trained = lm_train_phase(args.seed, card=card)
+    one_device = {}
+    trained = lm_train_phase(args.seed, card=card, keep=one_device)
     torch.cuda.empty_cache()
 
     # -- 13. mesh ------------------------------------------------------------
@@ -3340,13 +3745,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 14. sharded ---------------------------------------------------------
-    sharded = sharded_phase(args.seed, card=card,
-                            unsharded=lm_runs.pop("bfloat16"))
-    del lm_runs
+    sharded = sharded_phase(args.seed, card=card)
+    torch.cuda.empty_cache()
+
+    # -- 15. mesh_train ------------------------------------------------------
+    mesh_trained = mesh_train_phase(args.seed, card=card,
+                                    one_device=one_device)
     torch.cuda.empty_cache()
 
     # the temporal form's rows: each (dtype, shape, form) at which phases 9,
-    # 10 and 12 launched fuse1d (the cuda generates' prefills, the FuSe stem
+    # 10, 12, 14 and 15 launched fuse1d (the cuda generates' prefills, the FuSe stem
     # calls), checked there and at T = 2 (< K - 1) against the plain
     # version, timed, with the launches counted at that shape
     paths = [(path, called_from, by_dtype.get(dtype, {}))
@@ -3361,7 +3769,9 @@ def main() -> int:
                  (f"{LM_ARCH} trained, prefill",
                   "src/repro/kernels/ops.py:39", trained),
                  (f"{LM_ARCH} prefill under a sharding policy",
-                  "src/repro/kernels/ops.py:39", sharded))]
+                  "src/repro/kernels/ops.py:39", sharded),
+                 (f"{LM_ARCH} trained under a sharding policy, prefill",
+                  "src/repro/kernels/ops.py:39", mesh_trained))]
     for path, called_from, by_shape in paths:
         for key, n in by_shape.items():
             sh = temporal_shape(key)

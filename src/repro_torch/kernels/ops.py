@@ -69,12 +69,15 @@ def on_local_channels(conv, x, w, *, causal: bool):
     ``tp_seq``'s residual stream, or a pending sum is redistributed), w
     (K, C) takes x's channel shards, and ``conv`` runs on the local
     (B/data, T, C/model) against (K, C/model) under ``local_map``.  The
-    output keeps x's placements."""
-    from torch.distributed.tensor import Replicate, Shard
+    output keeps x's placements.  In a backward pass w's gradient is a
+    partial sum over the axes that shard x's batch (each rank saw only its
+    rows)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     x_pl = [p if p in (Shard(0), Shard(2)) else Replicate()
             for p in x.placements]
     w_pl = [Shard(1) if p == Shard(2) else Replicate() for p in x_pl]
+    dw_pl = [Partial() if p == Shard(0) else q for p, q in zip(x_pl, w_pl)]
 
     def local(xl: Tensor, wl: Tensor) -> Tensor:
         if xl.shape[2] != wl.shape[1]:
@@ -85,6 +88,7 @@ def on_local_channels(conv, x, w, *, causal: bool):
     # one output: its placements as a list (a tuple would mean one entry
     # per output)
     return local_map(local, out_placements=x_pl, in_placements=(x_pl, w_pl),
+                     in_grad_placements=(x_pl, dw_pl),
                      device_mesh=x.device_mesh,
                      redistribute_inputs=True)(x, w)
 

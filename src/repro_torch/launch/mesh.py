@@ -308,6 +308,14 @@ def make_host_mesh(device="cuda"):
     return make_lm_mesh((1, 1), device, LM_AXES)
 
 
+def local_device(mesh) -> torch.device:
+    """The device this rank holds of an LM mesh: the current card of a
+    ``cuda`` mesh, else the mesh's device type."""
+    kind = mesh.device_type
+    return torch.device(kind, torch.cuda.current_device()) \
+        if kind == "cuda" else torch.device(kind)
+
+
 def data_axes(mesh) -> tuple:
     """The axes a global batch is sharded over (pod acts as outer data)."""
     return tuple(a for a in axis_names(mesh) if a in ("pod", "data"))

@@ -3,12 +3,13 @@ prefill_step, decode_step, and the train step's shardings.
 
 Port of ``repro.launch.steps``.  Eager autograd through the model's plain
 ops stands in for ``jax.jit(value_and_grad)``; the model must be on
-backend ``torch`` (the kernels have no backward pass).  ``make_train_step``
-runs on one device.  ``make_prefill_step`` and ``make_decode_step`` pass a
-sharding policy's ``act_constraint`` to the model (the identity without
-one), and ``zero_extend`` and ``train_step_shardings`` give the specs and
-placements of a sharded train step's state, as the reference's jit takes
-them.
+backend ``torch`` (the kernels have no backward pass).  Each
+``make_*_step`` takes a sharding policy and passes its ``act_constraint``
+to the model (the identity without one).  ``make_train_step`` with a policy runs on
+DTensor parameters and optimizer state placed as ``train_step_shardings``
+gives them (``zero_extend`` and ``train_step_shardings`` give the specs
+and placements of that state, as the reference's jit takes them) and on a
+batch sharded over the data axes; without one it runs on one device.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from repro_torch.data.vision_synth import step_seed
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.launch.mesh import axis_size
 from repro_torch.launch.sharding import (NamedSharding, P, PartitionSpec,
                                          ShardingPolicy)
@@ -81,8 +83,24 @@ def update_in_place(opt: Optimizer, grads: List, opt_state: dict,
             p.copy_(apply_updates(p, updates))
 
 
+def _as_placed(grads: List, params: List) -> List:
+    """Each DTensor gradient redistributed to its parameter's placements
+    (a replicated parameter's gradient arrives as a partial sum over the
+    data axes: one all-reduce); plain gradients as they are."""
+    return [g if g is None or not is_dtensor(g)
+            else g.redistribute(p.device_mesh, p.placements)
+            for g, p in zip(grads, params)]
+
+
+def _full(t):
+    """A DTensor's full value as a plain tensor (a collective); a plain
+    tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def make_train_step(model: LanguageModel, n_micro: int, optimizer=None,
-                    grad_compression: str = "none") -> Callable:
+                    grad_compression: str = "none",
+                    policy: Optional[ShardingPolicy] = None) -> Callable:
     """Returns ``train_step(params, opt_state, step, batch) -> (params,
     opt_state, metrics)``.  ``batch`` leaves are (n_micro, mb, ...).  With
     ``n_micro == 1`` the gradient is used directly, in the parameters'
@@ -94,35 +112,50 @@ def make_train_step(model: LanguageModel, n_micro: int, optimizer=None,
     unless given), applied in place: the parameters and the optimizer
     state passed in are updated and returned, as the reference donates
     them.  ``metrics``: ``loss`` (the mean over microbatches) and
-    ``grad_norm``, device tensors."""
+    ``grad_norm``, plain device tensors.
+
+    With ``policy`` the parameters and optimizer state are DTensors on the
+    policy's mesh and the batch leaves DTensors (or plain tensors, taken
+    as replicated): the loss runs with ``policy.act_constraint`` under
+    DTensor's implicit replication (the plain tensors the model makes meet
+    the parameters as replicated), each microbatch's gradient is brought
+    to its parameter's placements before anything reads it, the global
+    norm is the whole tree's, and each rank updates its own shards.  The
+    int8 noise of a leaf is its whole tensor's, drawn on every rank, so
+    the step computes the one-device step's numbers on the same batch."""
     if grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression: none or int8, not "
                          f"{grad_compression!r}")
     opt = optimizer or default_optimizer(model.cfg)
     int8 = grad_compression == "int8"
+    shard_act = _shard_act(policy)
+
+    def loss_fn(params, mb):
+        return model.loss(params, mb, shard_act=shard_act)
+
+    def grads_of(params, mb):
+        (loss, _), g = value_and_grad(loss_fn, params, mb)
+        return loss, _as_placed(tree_leaves(g), tree_leaves(params))
 
     def train_step(params, opt_state, step, batch):
         micro = [{k: v[i] for k, v in batch.items()} for i in range(n_micro)]
         if n_micro == 1 and not int8:
             # direct path: no fp32 accumulator tree
-            (loss_sum, _), grads = value_and_grad(model.loss, params,
-                                                  micro[0])
-            grads = tree_leaves(grads)
+            loss_sum, grads = grads_of(params, micro[0])
         else:
             gen = None
             if int8:
                 dev = tree_leaves(params)[0].device
                 gen = torch.Generator(device=dev).manual_seed(
                     step_seed(0, step))
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
                      for p in tree_leaves(params)]
             loss_sum = 0.0
             for mb in micro:
-                (loss, _), g = value_and_grad(model.loss, params, mb)
+                loss, g = grads_of(params, mb)
                 if int8:
                     g = compress_tree(g, gen)
-                for acc, gi in zip(grads, tree_leaves(g)):
+                for acc, gi in zip(grads, g):
                     if gi is not None:
                         acc.add_(gi.float())
                 del g
@@ -132,10 +165,19 @@ def make_train_step(model: LanguageModel, n_micro: int, optimizer=None,
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, 1.0)
         update_in_place(opt, grads, opt_state, params, step)
-        return params, opt_state, {"loss": loss_sum / n_micro,
-                                   "grad_norm": gnorm}
+        return params, opt_state, {"loss": _full(loss_sum / n_micro),
+                                   "grad_norm": _full(gnorm)}
 
-    return train_step
+    if policy is None:
+        return train_step
+
+    def sharded_step(params, opt_state, step, batch):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return train_step(params, opt_state, step, batch)
+
+    return sharded_step
 
 
 def zero_extend(policy: ShardingPolicy, spec, leaf) -> PartitionSpec:

@@ -14,7 +14,9 @@ backward pass and refuse grad-requiring inputs, and the reference trains
 on plain ops too.  ``forward``, ``loss``, ``prefill`` and ``decode_step``
 take the reference's ``shard_act``, applied to the residual stream after
 every layer (a sharding policy's ``act_constraint``; the identity by
-default).
+default).  On DTensor parameters the embedding lookup and the loss's
+per-token NLL run on each rank's batch rows (``embed_lookup``,
+``token_nll``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from repro_torch import tree
+from repro_torch.kernels._build import is_dtensor
 from repro_torch.kernels.backend import TORCH, Backend, resolve_backend
 from repro_torch.models import stack as S
 from repro_torch.models.common import (dense_init, embed_init, rms_norm,
@@ -36,6 +39,60 @@ PyTree = Any
 
 def Identity(x, *_):
     return x
+
+
+def _replicated(t: Tensor, mesh) -> Tensor:
+    """A DTensor as it is; a plain tensor as a replicated DTensor on
+    ``mesh``."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def embed_lookup(embed: Tensor, tokens: Tensor) -> Tensor:
+    """``embed[tokens]``.  A DTensor embedding (vocab-sharded under a
+    policy) is made whole and looked up on each rank's token rows under
+    ``local_map`` (DTensor's rule for the lookup's backward,
+    ``index_put``, fails in PyTorch 2.11); its gradient is a partial sum
+    over the axes that shard the token rows.  ``tokens`` may be a plain
+    tensor (taken as replicated) or a DTensor."""
+    if not is_dtensor(embed):
+        return embed[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = embed.device_mesh
+    tokens = _replicated(tokens, mesh)
+    rows = [p if p == Shard(0) else Replicate() for p in tokens.placements]
+    whole = [Replicate()] * mesh.ndim
+    grad = [Partial() if p == Shard(0) else p for p in rows]
+    return local_map(lambda e, t: e[t], out_placements=rows,
+                     in_placements=(whole, rows),
+                     in_grad_placements=(grad, rows), device_mesh=mesh,
+                     redistribute_inputs=True)(embed, tokens)
+
+
+def token_nll(logits: Tensor, labels: Tensor) -> Tensor:
+    """``logsumexp(logits) - logit[label]`` per token: (B, S, V), (B, S)
+    -> (B, S).  DTensor logits are taken on each rank's batch rows, the
+    vocab and sequence made whole first (a vocab-sharded head's logits are
+    gathered over "model"): DTensor's own rule for a gather along a
+    sharded dim leaves a masked partial sum that its next reduction cannot
+    take (PyTorch 2.13).  ``labels`` may then be a plain tensor (taken as
+    replicated) or a DTensor."""
+    if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        mesh = logits.device_mesh
+        rows = [p if p == Shard(0) else Replicate()
+                for p in logits.placements]
+        return local_map(token_nll, out_placements=rows,
+                         in_placements=(rows, rows), device_mesh=mesh,
+                         redistribute_inputs=True)(
+            logits, _replicated(labels, mesh))
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - logits.gather(-1, labels[..., None])[..., 0]
 
 
 def _stack(trees: List[PyTree]) -> PyTree:
@@ -126,7 +183,7 @@ class LanguageModel:
             b, s_len)
         ctx = self._ctx(positions)
         self._prepare_memory(params, extras or {}, ctx)
-        return params["embed"][tokens], ctx
+        return embed_lookup(params["embed"], tokens), ctx
 
     def _encode(self, params: PyTree, memory_embeds: Tensor) -> Tensor:
         """Encoder stack over the modality embeddings (audio frames)."""
@@ -191,10 +248,7 @@ class LanguageModel:
                               extras={k: v for k, v in batch.items()
                                       if k not in ("tokens", "labels")},
                               shard_act=shard_act)
-        labels = batch["labels"].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        label_logit = logits.gather(-1, labels[..., None])[..., 0]
-        loss = torch.mean(lse - label_logit)
+        loss = torch.mean(token_nll(logits, batch["labels"].long()))
         return loss, {"loss": loss,
                       "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 
@@ -245,7 +299,7 @@ class LanguageModel:
         """token: (B,) -> logits (B,V), updated cache (one position)."""
         segs = self._check()
         pos = int(cache["pos"])
-        x = params["embed"][token][:, None, :]               # (B,1,D)
+        x = embed_lookup(params["embed"], token)[:, None, :]  # (B,1,D)
         ctx = dict(self._ctx(None), memory_len=self._memory_len(extras))
         new_caches = []
         for seg, sp, sc in zip(segs, params["segments"], cache["layers"]):

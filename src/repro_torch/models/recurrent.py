@@ -128,7 +128,19 @@ class _LinearScan(torch.autograd.Function):
 def linear_scan(a: Tensor, b: Tensor) -> Tensor:
     """h_t = a_t * h_{t-1} + b_t over axis 1, h_0 = 0: a log-depth
     doubling scan, differentiable with the reference's memory-light rule
-    (``_LinearScan``)."""
+    (``_LinearScan``).  DTensors a, b (B, S, W) run it on each rank's
+    shard under ``local_map``: their batch (dim 0) and channel (dim 2)
+    shards stay, time is made whole (the recurrence is elementwise in B
+    and W), and the backward runs on the same local shards."""
+    if is_dtensor(a):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        layout = [p if p in (Shard(0), Shard(2)) else Replicate()
+                  for p in a.placements]
+        return local_map(_LinearScan.apply, out_placements=layout,
+                         in_placements=(layout, layout),
+                         device_mesh=a.device_mesh,
+                         redistribute_inputs=True)(a, b)
     return _LinearScan.apply(a, b)
 
 

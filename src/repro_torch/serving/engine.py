@@ -39,6 +39,7 @@ from typing import Any, List, Optional
 import torch
 
 from repro_torch import tree
+from repro_torch.launch.mesh import local_device
 from repro_torch.launch.sharding import ShardingPolicy
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import common
@@ -78,9 +79,7 @@ class ServeEngine:
         if policy is None:
             self.device = params["embed"].device
         else:
-            kind = policy.mesh.device_type
-            self.device = torch.device(
-                kind, torch.cuda.current_device() if kind == "cuda" else None)
+            self.device = local_device(policy.mesh)
         # the closures hold the model and extras, not the engine: an engine
         # dropped is freed at once, with its parameters (a reference cycle
         # would hold them on the card until the garbage collector runs)

@@ -13,7 +13,10 @@ Beyond it: a bfloat16 leaf round-tripped bit for bit in a process where
 the port; ``TokenPipeline.batch_at`` a pure function of (seed, step,
 host) with shifted labels; ``quantize_int8`` within one scale of its input
 and unbiased over draws; the launcher in subprocesses (a rerun resumes to
-the state of one straight run; each multi-host flag exits in one line).
+the state of one straight run; a bad ``--distributed`` topology exits in
+one line before any process group forms; ``--distributed`` on one process
+trains on the 1x1 host mesh and resumes; a production mesh on one process
+exits in one line naming the mesh and the world).
 """
 import dataclasses
 import os
@@ -30,7 +33,6 @@ import torch
 from repro.train.checkpoint import CheckpointManager as JCheckpointManager
 from repro_torch import configs as TC
 from repro_torch.data.tokens import TokenConfig, TokenPipeline
-from repro_torch.launch import train as tlaunch
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (compress_tree, dequantize_int8,
                                            quantize_int8)
@@ -117,6 +119,29 @@ def test_checkpoint_restore_checks_leaves_and_takes_template_dtype(tmp_path):
         mgr.restore(1, {"x": torch.zeros(5)})
     meta, _ = mgr.restore(1, {"x": torch.zeros(4, device="meta")})
     assert meta["x"].device.type == "meta"
+
+
+def test_checkpoint_restores_compressed_and_stored_members(tmp_path):
+    """``restore`` reads an npz member stored uncompressed (as ``np.savez``
+    writes them) from its offset in the file, and any other member (here
+    one ``np.savez_compressed`` wrote, and a Fortran-ordered one) through
+    ``np.load``: the same arrays either way."""
+    want = {"a": np.arange(12, dtype=np.float32).reshape(3, 4),
+            "b/0": np.arange(6, dtype=np.int32)[::-1].copy(),
+            "e": np.zeros((0, 4), np.float32),
+            "f": np.asfortranarray(np.arange(6.0).reshape(2, 3))}
+    template = {"a": torch.zeros(3, 4),
+                "b": [torch.zeros(6, dtype=torch.int32)],
+                "e": torch.zeros(0, 4),
+                "f": torch.zeros(2, 3, dtype=torch.float64)}
+    for save in (np.savez, np.savez_compressed):
+        d = tmp_path / save.__name__ / "step_1"
+        d.mkdir(parents=True)
+        save(d / "state.npz", **want)
+        (d / "manifest.json").write_text('{"step": 1}')
+        out, _ = CheckpointManager(str(d.parent)).restore(1, template)
+        for k, t in zip(("a", "b/0", "e", "f"), tree_leaves(out)):
+            assert np.array_equal(t.numpy(), want[k]), (save.__name__, k)
 
 
 def test_checkpoint_save_error_raised_at_wait(tmp_path, monkeypatch):
@@ -353,14 +378,71 @@ def test_launcher_resumes_on_rerun(tmp_path):
                                        err_msg=k)
 
 
-@pytest.mark.parametrize("flag", [["--distributed"], ["--multi-pod"],
-                                  ["--coordinator", "h:1"],
-                                  ["--num-processes", "2"],
-                                  ["--process-id", "0"]])
-def test_launcher_multi_host_flags_exit_in_one_line(flag):
-    proc = _launch(*flag)
+@pytest.mark.parametrize("flags, reason", [
+    (["--num-processes", "1", "--process-id", "0"], "no coordinator address"),
+    (["--coordinator", "127.0.0.1:1", "--num-processes", "2",
+      "--process-id", "2"], "process_id 2 out of range"),
+    (["--coordinator", "127.0.0.1:1", "--num-processes", "0",
+      "--process-id", "0"], "num_processes must be >= 1")])
+def test_launcher_bad_topology_exits_in_one_line(flags, reason):
+    """A bad ``--distributed`` topology exits with one ``--distributed:``
+    line, before any process group forms (nothing listens at the
+    coordinator address, and the launcher has not imported torch)."""
+    env = {k: v for k, v in os.environ.items() if k not in (
+        "JAX_COORDINATOR_ADDRESS", "REPRO_NUM_PROCESSES", "REPRO_PROCESS_ID")}
+    code = ("import sys\n"
+            "from repro_torch.launch import train\n"
+            "try:\n"
+            "    train.main(sys.argv[1:])\n"
+            "finally:\n"
+            "    assert 'torch' not in sys.modules\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, "--arch", "smollm_135m", "--smoke",
+         "--device", "cpu", "--distributed", *flags], capture_output=True,
+        text=True, timeout=60, env=dict(env, PYTHONPATH=SRC))
     assert proc.returncode == 1 and proc.stdout == ""
     lines = proc.stderr.strip().splitlines()
-    name = flag[0].removeprefix("--").replace("-", "_")
-    assert lines == [tlaunch.NOT_PORTED[name]]
-    assert "items 7 and 4.2" in lines[0]
+    assert len(lines) == 1 and lines[0].startswith("--distributed: ")
+    assert reason in lines[0]
+
+
+def test_launcher_distributed_trains_on_the_host_mesh_and_resumes(tmp_path):
+    """``--distributed`` on one process trains on the 1x1 host mesh (a
+    world-1 ``gloo`` group), and the same command rerun with more steps
+    resumes from its mesh checkpoint."""
+    d = tmp_path / "ckpt"
+    common = ("--distributed", "--coordinator", "127.0.0.1:1",
+              "--num-processes", "1", "--process-id", "0", "--ckpt-every",
+              "2", "--ckpt-dir", str(d))
+    first = _launch(*common, "--steps", "2")
+    assert first.returncode == 0, first.stderr[-3000:]
+    assert "mesh: 1x1 ('data', 'model') over a world-1 gloo group" \
+        in first.stdout
+    assert "step     0 loss" in first.stdout and "final loss: " \
+        in first.stdout
+    rerun = _launch(*common, "--steps", "4")
+    assert rerun.returncode == 0, rerun.stderr[-3000:]
+    assert "step     0" not in rerun.stdout      # resumed at step 2
+    assert CheckpointManager(str(d)).steps() == [2, 4]
+    with np.load(d / "step_2" / "state.npz") as a, \
+            np.load(d / "step_4" / "state.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert not np.array_equal(a["params/embed"], b["params/embed"])
+
+
+@pytest.mark.parametrize("flags, mesh", [
+    (["--multi-pod"], "a 2x16x16 ('pod', 'data', 'model') mesh"),
+    (["--distributed", "--coordinator", "127.0.0.1:1", "--num-processes",
+      "1", "--process-id", "0"], "a 16x16 ('data', 'model') mesh")])
+def test_launcher_mesh_larger_than_the_world_exits_in_one_line(flags, mesh):
+    """The production meshes on one process: one line naming the mesh and
+    the world."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "smollm_135m", "--device", "cpu", *flags], capture_output=True,
+        text=True, timeout=300, env=env)
+    assert proc.returncode == 1 and proc.stdout == ""
+    lines = proc.stderr.strip().splitlines()
+    assert len(lines) == 1 and lines[0].startswith(mesh)
+    assert "but the process group has 1" in lines[0]
